@@ -1,0 +1,18 @@
+"""gfalign_torch: the PyTorch/CUDA port of gfalign_tpu.
+
+It runs on an NVIDIA H100 (sm_90a) and keeps the JAX package's module
+layout, so each module's counterpart sits under the same path there.  It
+imports torch, numpy and the standard library only, never jax or
+gfalign_tpu.
+
+Subpackages
+-----------
+io        GFA and GAF parsing, writers
+graph     graph model, name<->id vocab, adjacency, assembly statistics
+ops       NW path scoring: plain PyTorch version and the CUDA kernels
+engine    search, evalPath, evalGFA, alignment-set operations
+parallel  the frontier scoring step; a single-process distribution stub
+cli       drop-in command-line surface mirroring the reference's flags
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,102 @@
+"""Frontier tallies of the port (parallel/score_step.local_step and
+engine/evaluate.evaluate_candidates) against the JAX package's
+evaluate_candidates and _local_step, with the membership filter on and off.
+Tallies are int32 and compared with tolerance zero."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from gfalign_tpu.engine import evaluate as JE
+from gfalign_tpu.ops.nw_path import Step
+from gfalign_tpu.parallel.score_step import _local_step
+from gfalign_torch.engine import evaluate as TE
+from gfalign_torch.parallel.score_step import local_step
+
+
+def random_path(rng, max_nodes, max_len, min_len=1):
+    return [Step(rng.randrange(max_nodes), rng.choice("+-"))
+            for _ in range(rng.randrange(min_len, max_len))]
+
+
+def random_frontier(seed):
+    """A frontier of candidates and a read set that includes an empty read
+    path (a GAF record with path '*')."""
+    rng = random.Random(seed)
+    nodes = rng.randrange(4, 12)
+    cands = [random_path(rng, nodes, 12) for _ in range(rng.randrange(1, 40))]
+    reads = [random_path(rng, nodes, 10, min_len=0)
+             for _ in range(rng.randrange(2, 60))]
+    reads.append([])
+    return cands, reads
+
+
+def _tallies(scores):
+    return [(s.bad, s.good, s.unaligned) for s in scores]
+
+
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+@pytest.mark.parametrize("seed", range(6))
+def test_evaluate_candidates_match_jax(seed, filt):
+    cands, reads = random_frontier(seed)
+    want = _tallies(JE.evaluate_candidates(cands, reads, filt))
+    got = _tallies(TE.evaluate_candidates(cands, reads, filt, device="cpu"))
+    assert got == want
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_local_step_matches_jax_local_step(seed):
+    """The device step alone, against the JAX per-device step (XLA scorer),
+    on padded tensors whose pad reads carry b_len == 0."""
+    cands, reads = random_frontier(50 + seed)
+    reads = [r for r in reads if r]
+    jb = JE.ReadBatch(reads)
+    R = len(reads)
+    b_keys = np.concatenate([jb.b_keys, np.full((8, jb.m), -2, np.int32)])
+    b_len = np.concatenate([jb.lengths, np.zeros(8, np.int32)])
+    n = 16
+    a_keys = np.full((len(cands) + 3, n), -1, np.int32)
+    a_len = np.zeros(len(cands) + 3, np.int32)
+    for i, c in enumerate(cands):
+        a_keys[i, :len(c)] = [s.id * 4 + (s.orientation == "-") for s in c]
+        a_len[i] = len(c)
+    want = np.asarray(_local_step(a_keys, a_len, b_keys, b_len))
+    got = local_step(*(torch.from_numpy(x) for x in (a_keys, a_len, b_keys, b_len)),
+                     filter_alignments=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    nofilt = local_step(*(torch.from_numpy(x) for x in (a_keys, a_len, b_keys, b_len)),
+                        filter_alignments=False).numpy()
+    np.testing.assert_array_equal(nofilt[:, 2], 0)
+    np.testing.assert_array_equal(nofilt[:, :2].sum(1), R)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_read_batch_from_jax_arrays_gives_identical_tallies(seed):
+    cands, reads = random_frontier(100 + seed)
+    jb = JE.ReadBatch(reads)
+    tb = TE.ReadBatch.from_arrays(jb.b_keys, jb.lengths, jb.ids, device="cpu")
+    direct = TE.ReadBatch(reads, device="cpu")
+    np.testing.assert_array_equal(tb.b_keys, direct.b_keys)
+    np.testing.assert_array_equal(tb.lengths, direct.lengths)
+    for filt in (True, False):
+        want = _tallies(JE.evaluate_candidates(cands, jb, filt))
+        assert _tallies(TE.evaluate_candidates(cands, tb, filt)) == want
+
+
+def test_read_batch_from_arrays_rejects_mismatched_ids():
+    jb = JE.ReadBatch([[Step(1, "+"), Step(2, "-")], [Step(3, "+")]])
+    ids = jb.ids.copy()
+    ids[0, 1] = 7
+    with pytest.raises(ValueError):
+        TE.ReadBatch.from_arrays(jb.b_keys, jb.lengths, ids, device="cpu")
+
+
+def test_device_keys_pad_to_cpu_quantum():
+    batch = TE.ReadBatch([[Step(1, "+")]] * 11, device="cpu")
+    b_keys, b_len = batch.device_keys()
+    assert b_keys.shape == (16, batch.m) and b_len.shape == (16,)
+    assert int(b_len[11:].abs().sum()) == 0
+    assert batch.device_keys()[0] is b_keys  # uploaded once
