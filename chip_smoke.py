@@ -6,8 +6,7 @@ NVIDIA H100.  Run from the repository root, with no arguments:
 
 Phases (each prints a line; any failure raises and exits non-zero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build csrc/nw_path.cu (kernels K1 and K2) with nvcc, timed, and count
-     each kernel's instructions per DP cell in its SASS;
+  2. build csrc/nw_path.cu (kernels K1 and K2) with nvcc, timed;
   3. K1 against its plain PyTorch version on the card, bit-exact, at the
      shapes of bench.py (C=128, R=16,384 fw+rc, N=M=64) and on a ragged
      batch with empty rows; timed with CUDA events;
@@ -20,12 +19,14 @@ Phases (each prints a line; any failure raises and exits non-zero):
      three runs, and each run must have launched its kernel;
   6. K1 and K2 timed against their plain versions at the main path's own
      shapes (the largest search frontier; the long-path batch);
-  7. the search once more under torch.profiler: device time by kernel and
-     the device's idle share.
+  7. the search once more, its first PROFILE_FRONTIERS frontier calls under
+     torch.profiler (device activity only): device time by kernel and the
+     device's idle share of that window's wall, beside the same window's
+     unprofiled wall from phase 5.
 
-A kernel's bound is its useful DP cells times the instructions per cell of
-its row loop, read from the built library's SASS, over each pipe's peak
-rate (the slowest pipe binds), or its bytes over HBM bandwidth if larger.
+A kernel's bound is its useful DP cells times its integer-ALU operations
+per cell (OPS_PER_CELL) over the card's int32 ALU rate, or its bytes over
+HBM bandwidth if larger.
 
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Details also go to chiprun_out/chip_smoke.json.
@@ -40,7 +41,6 @@ import hashlib
 import io
 import json
 import pathlib
-import re
 import statistics
 import subprocess
 import sys
@@ -50,18 +50,23 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet / Hopper white paper): HBM3 at
-# 3.35 TB/s; per SM and clock, 64 results of the integer ALU pipe (add,
-# compare, select, min/max, logic, shifts), 64 of IMAD on the FMA pipe and
-# 128 issued instructions (4 schedulers x 32 threads); 132 SMs at the
-# 1.98 GHz boost clock that gives the data sheet's 67 TFLOP/s float32 from
-# 128 float32 lanes per SM.
+# 3.35 TB/s; 132 SMs at the 1.98 GHz boost clock (132 x 128 float32 lanes
+# x 2 x 1.98 GHz is the data sheet's 67 TFLOP/s float32), each SM retiring
+# 64 int32 results of its integer ALU pipe per clock (16 per sub-partition):
+# 16.7 T int32 op/s.
 HBM_BYTES_PER_S = 3.35e12
-SM_CLOCKS_PER_S = 132 * 1.98e9
-PIPE_PER_CLOCK = {"alu": 64, "fma": 64, "issue": 128}
-# instructions outside the integer ALU pipe (FMA pipe, memory, control,
-# uniform datapath)
-_NOT_ALU = re.compile(r"^(IMAD|LD|ST|BRA|BSSY|BSYNC|NOP|EXIT|BAR|U)")
-OPS_PER_CELL = {}  # filled from the built library's SASS in phase 2
+INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations per DP cell that only the integer ALU pipe executes,
+# counted from the row loops of csrc/nw_path.cu, one count per kernel
+# whatever the strip width.  K1: the key compare, the select of the
+# diagonal delta, two maxes and the priority mask.  K2: the key compare,
+# the select of the diagonal delta, two maxes, the two move compares
+# (q == dg, up >= left) and the two selects of E.  The three adds per cell
+# are left out: Hopper fuses an add into a max (VIADDMNMX) or issues it as
+# IMAD on the FMA pipe.  Issue (128 instructions per SM and clock) binds
+# later: 8/128 and 11/128 instructions per cell against 5/64 and 8/64.
+OPS_PER_CELL = {"packed": 5, "split": 8}
+PROFILE_FRONTIERS = 300  # frontier calls of the search under the profiler
 KERNELS = {
     "packed": dict(name="nw_fwd_packed (K1)",
                    replaces="gfalign_tpu/ops/nw_pallas.py:159"),
@@ -92,51 +97,13 @@ def time_ms(fn, warmup: int = 1, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def sass_ops_per_cell():
-    """{(kind, strip width): {pipe: instructions per DP cell}} read from the
-    built library's SASS: the row loop of each kernel instantiation is the
-    smallest backward-branch loop holding one max per cell of its strip."""
-    from gfalign_torch.ops import nw_cuda
-
-    cuobjdump = pathlib.Path(nw_cuda._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(nw_cuda._LIB_PATH)],
-                          capture_output=True, text=True, check=True).stdout
-    out = {}
-    for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = re.search(r"nw_fwd_(packed|split)_kernelILi(\d+)E", func.split("\n", 1)[0])
-        if not name:
-            continue
-        mt = int(name.group(2))
-        ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", func)]
-        loops = [(int(t.group(1), 16), a) for a, op, rest in ins if op == "BRA"
-                 for t in [re.search(r"0x([0-9a-f]+)", rest)]
-                 if t and int(t.group(1), 16) < a]
-        bodies = [[op for a, op, _ in ins if lo <= a <= hi] for lo, hi in loops]
-        bodies = [b for b in bodies if sum("MNMX" in op for op in b) >= mt]
-        if not bodies:
-            raise RuntimeError(f"no row loop found in the SASS of {name.group(0)}")
-        body = min(bodies, key=len)
-        fma = sum(op.startswith("IMAD") for op in body)
-        alu = sum(not _NOT_ALU.match(op) for op in body)
-        out[name.group(1), mt] = dict(alu=alu / mt, fma=fma / mt, issue=len(body) / mt)
-    return out
-
-
 def bound(a_keys, a_len, b_keys, b_len, kind):
     """(least ms, 'bytes' or 'operations', useful cells) for scoring these
     inputs: the useful cells (sum over pairs of a_len x b_len) times the
-    instantiation's instructions per cell over each pipe's peak rate, the
-    slowest pipe binding; against each input read once and the output
-    written once over HBM bandwidth."""
-    from gfalign_torch.ops import nw_cuda
-
-    m = b_keys.shape[1]
-    mt = 8 if m <= 8 else 16 if m <= 16 else nw_cuda.STRIP
-    per_cell = OPS_PER_CELL[kind, mt]
+    kernel's ALU operations per cell over the int32 ALU rate, against each
+    input read once and the output written once over HBM bandwidth."""
     cells = int(a_len.sum()) * int(b_len.sum())
-    ops_s = max(cells * per_cell[p] / (PIPE_PER_CLOCK[p] * SM_CLOCKS_PER_S)
-                for p in PIPE_PER_CLOCK)
+    ops_s = cells * OPS_PER_CELL[kind] / INT32_ALU_OPS_PER_S
     nbytes = 4 * (a_keys.numel() + a_len.numel() + b_keys.numel()
                   + b_len.numel() + a_len.numel() * b_len.numel())
     bytes_s = nbytes / HBM_BYTES_PER_S
@@ -217,10 +184,6 @@ def phase_build():
     for line in report.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas " + line.strip())
-    OPS_PER_CELL.update(sass_ops_per_cell())
-    for (kind, mt), per in sorted(OPS_PER_CELL.items()):
-        log(f"  sass {kind}<{mt}> per cell: " + ", ".join(
-            f"{p} {v:.3f}" for p, v in per.items()))
     log(f"phase 2 build: csrc/nw_path.cu in {secs:.1f} s")
     return secs
 
@@ -293,10 +256,18 @@ def run_main(argv):
 def phase_end_to_end(workdir):
     import gfalign_torch.engine.search as search_mod
     from gfalign_torch import synth
+    from gfalign_torch.io.writers import write_gfa1
 
     t0 = time.time()
     wl = synth.make_workload(seed=0)
-    paths = synth.write_search_inputs(wl, workdir)
+    work = pathlib.Path(workdir)
+    paths = {"gfa": str(work / "graph.gfa"), "gaf": str(work / "truth.gaf"),
+             "search_nodelist": str(work / "search_nodelist.tsv")}
+    with open(paths["gfa"], "w") as fh:
+        write_gfa1(wl.graph, fh.write)
+    synth.write_truth_gaf(wl, paths["gaf"])
+    pathlib.Path(paths["search_nodelist"]).write_text(
+        "".join(row + "\n" for row in wl.search_nodelist))
     golden = read_goldens()
     for key, name in (("gfa", "graph.gfa"), ("gaf", "truth.gaf")):
         if digest(pathlib.Path(paths[key]).read_bytes()) != golden[name]:
@@ -306,15 +277,19 @@ def phase_end_to_end(workdir):
 
     frontiers = []
     score_s = [0.0]
+    window = {}
     evaluate = search_mod.evaluate_candidates
 
     def counting(candidates, read_batch, filter_alignments=True):
         frontiers.append((len(candidates), candidates, read_batch))
         t = time.perf_counter()
+        window.setdefault("t0", t)
         try:
             return evaluate(candidates, read_batch, filter_alignments)
         finally:
             score_s[0] += time.perf_counter() - t
+            if len(frontiers) == PROFILE_FRONTIERS:
+                window["wall"] = time.perf_counter() - window["t0"]
 
     search_argv = ["search", "-f", paths["gfa"], "-g", paths["gaf"], "-n",
                    paths["search_nodelist"], "-s", "498", "-d", "503"]
@@ -328,7 +303,8 @@ def phase_end_to_end(workdir):
     if out != (ROOT / "tests/data/torch_slice_search_seed0.out").read_bytes():
         raise RuntimeError("search output differs from the golden:\n" + out.decode())
     search = dict(seconds=secs, scoring_seconds=score_s[0], frontiers=len(frontiers),
-                  candidates=sum(f[0] for f in frontiers), launches=launches)
+                  candidates=sum(f[0] for f in frontiers), launches=launches,
+                  window_s=window["wall"])
     log(f"phase 5 search: golden-equal, {secs:.2f} s ({score_s[0]:.2f} s inside "
         f"evaluate_candidates), {len(frontiers)} frontiers, "
         f"{search['candidates']} candidates, launches {launches}")
@@ -348,26 +324,57 @@ def phase_end_to_end(workdir):
     return search, evalpath, largest, search_argv
 
 
-def phase_profile(search_argv, unprofiled_s):
-    """The full-scale search once more under torch.profiler: device time
-    by kernel, and the device's idle share of the unprofiled search."""
+def phase_profile(search_argv, unprofiled_window_s):
+    """The full-scale search once more, its first PROFILE_FRONTIERS frontier
+    calls under torch.profiler with device activity only: device time by
+    kernel, and the device's idle share of that window's wall in the same
+    run.  The window's unprofiled wall (phase 5) shows what the profiler
+    costs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_main(search_argv)
-        torch.cuda.synchronize()
+    import gfalign_torch.engine.search as search_mod
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    calls = [0]
+    window = {}
+    evaluate = search_mod.evaluate_candidates
+
+    def windowed(candidates, read_batch, filter_alignments=True):
+        if calls[0] == 0:
+            prof.start()
+            window["t0"] = time.perf_counter()
+        res = evaluate(candidates, read_batch, filter_alignments)
+        calls[0] += 1
+        if calls[0] == PROFILE_FRONTIERS:
+            torch.cuda.synchronize()
+            window["wall"] = time.perf_counter() - window["t0"]
+            prof.stop()
+        return res
+
+    search_mod.evaluate_candidates = windowed
+    try:
+        out, _, _ = run_main(search_argv)
+    finally:
+        search_mod.evaluate_candidates = evaluate
+    if out != (ROOT / "tests/data/torch_slice_search_seed0.out").read_bytes():
+        raise RuntimeError("profiled search output differs from the golden")
     kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA}
     device_ms = sum(kernels.values())
+    if device_ms <= 0:
+        raise RuntimeError("the profiler saw no device time")
     k1_ms = sum(v for k, v in kernels.items() if "nw_fwd_packed" in k)
+    wall_ms = window["wall"] * 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    res = dict(device_ms=device_ms, k1_ms=k1_ms,
-               idle_share=1 - device_ms / 1e3 / unprofiled_s,
+    res = dict(frontiers=PROFILE_FRONTIERS, device_ms=device_ms, k1_ms=k1_ms,
+               wall_ms=wall_ms, unprofiled_wall_ms=unprofiled_window_s * 1e3,
+               idle_share=1 - device_ms / wall_ms,
                top=[(k[:60], v) for k, v in top])
-    log(f"phase 7 profile of search: device busy {device_ms:.1f} ms of "
-        f"{unprofiled_s * 1e3:.1f} ms unprofiled wall (idle share "
-        f"{res['idle_share']:.3f}); K1 {k1_ms:.1f} ms")
+    log(f"phase 7 profile of search frontiers 0-{PROFILE_FRONTIERS - 1}: device "
+        f"busy {device_ms:.1f} ms of {wall_ms:.1f} ms wall (idle share "
+        f"{res['idle_share']:.3f}; unprofiled wall {res['unprofiled_wall_ms']:.1f}"
+        f" ms); K1 {k1_ms:.1f} ms")
     for k, v in res["top"]:
         log(f"  {v:9.2f} ms  {k}")
     return res
@@ -459,7 +466,7 @@ def main() -> int:
         search, evalpath, largest, search_argv = phase_end_to_end(workdir)
         long_paths, long_tensors = phase_long_paths()
         k1, k2 = phase_main_shapes(largest, long_tensors)
-        profile = phase_profile(search_argv, search["seconds"])
+        profile = phase_profile(search_argv, search["window_s"])
 
     launches = {"packed": search["launches"]["packed"] + evalpath["launches"]["packed"],
                 "split": long_paths["launches"]["split"]}
@@ -474,8 +481,7 @@ def main() -> int:
     details = dict(card=smi, device=name, build_s=build_s, k1_bench=k1_bench,
                    k2_check=k2_check, search=search, evalpath=evalpath,
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
-                   ops_per_cell={f"{k}<{mt}>": v for (k, mt), v in OPS_PER_CELL.items()},
-                   seconds=time.time() - t_start)
+                   ops_per_cell=OPS_PER_CELL, seconds=time.time() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1) + "\n")

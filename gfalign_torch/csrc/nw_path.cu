@@ -29,8 +29,8 @@
 // What bounds it: integer ALU instructions.  The inputs and the output are
 // a few MB at search shapes, while every DP cell costs a handful of int32
 // instructions (compare, select, adds, two maxes, and for K1 a mask), so
-// the bound is useful cells x instructions per cell / the ALU pipe's rate;
-// chip_smoke.py reads the instructions per cell from the built SASS.  The
+// the bound is useful cells x ALU operations per cell / the ALU pipe's
+// rate; chip_smoke.py (OPS_PER_CELL) counts them from the loops below.  The
 // row chain (left -> max -> next left) is serial inside a thread; latency
 // is hidden by the many independent (candidate, read) threads in flight.
 //

@@ -261,23 +261,3 @@ def write_workload(wl: Workload, out_dir: str) -> Dict[str, str]:
     with open(paths["filter_nodelist"], "w") as fh:
         fh.write("".join(n + "\n" for n in wl.filter_nodelist))
     return paths
-
-
-def write_search_inputs(wl: Workload, out_dir: str) -> Dict[str, str]:
-    """Write what `search` and `evalPath` read: graph.gfa, the truth GAF
-    (truth.gaf) and search_nodelist.tsv — not the reads, which at full
-    scale are ~100 MB of FASTQ; returns the path of each."""
-    import pathlib
-
-    from .io.writers import write_gfa1
-
-    d = pathlib.Path(out_dir)
-    d.mkdir(parents=True, exist_ok=True)
-    paths = {"gfa": str(d / "graph.gfa"), "gaf": str(d / "truth.gaf"),
-             "search_nodelist": str(d / "search_nodelist.tsv")}
-    with open(paths["gfa"], "w") as fh:
-        write_gfa1(wl.graph, fh.write)
-    write_truth_gaf(wl, paths["gaf"])
-    with open(paths["search_nodelist"], "w") as fh:
-        fh.write("".join(row + "\n" for row in wl.search_nodelist))
-    return paths

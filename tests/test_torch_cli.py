@@ -20,6 +20,7 @@ from gfalign_torch import synth
 from gfalign_torch.cli.main import main as torch_main
 from gfalign_torch.io.writers import write_gfa1
 from tests.test_search_differential import random_gaf_file, random_tangle
+from tests.test_torch_goldens import port_search_inputs
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # the default 6-node tangle makes ~7,000 frontier calls, minutes for the
@@ -52,7 +53,7 @@ def assert_same_run(tmp_path, argv):
 def workload(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_cli")
     wl = synth.make_workload(**WORKLOAD)
-    paths = synth.write_search_inputs(wl, str(d))
+    paths = port_search_inputs(wl, d)
     paths["filter_nodelist"] = str(d / "filter_nodelist.ls")
     pathlib.Path(paths["filter_nodelist"]).write_text(
         "".join(n + "\n" for n in wl.filter_nodelist))

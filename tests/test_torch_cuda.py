@@ -20,6 +20,7 @@ from gfalign_torch.cli.main import main
 from gfalign_torch.engine.evaluate import evaluate_candidates
 from gfalign_torch.ops import nw_cuda
 from gfalign_torch.ops.nw_path import Step, nw_pair_scores_ref
+from tests.test_torch_goldens import port_search_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -86,7 +87,7 @@ def test_evaluate_candidates_cuda_matches_cpu(filt, cuda):
 
 def test_cli_on_cuda_matches_cpu(cuda, tmp_path):
     wl = synth.make_workload(seed=2, n_segments=120, n_reads=300, tangle_k=5)
-    paths = synth.write_search_inputs(wl, str(tmp_path))
+    paths = port_search_inputs(wl, tmp_path)
     outs = {}
     for mode, extra in (("search", ["-n", paths["search_nodelist"], "-s",
                                     wl.source, "-d", wl.destination]),

@@ -12,6 +12,7 @@ import torch
 
 from gfalign_torch import synth
 from gfalign_torch.cli.main import main, resolve_device
+from tests.test_torch_goldens import port_search_inputs
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -19,7 +20,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 @pytest.fixture
 def inputs(tmp_path):
     wl = synth.make_workload(seed=1, n_segments=40, n_reads=20, tangle_k=4)
-    paths = synth.write_search_inputs(wl, str(tmp_path))
+    paths = port_search_inputs(wl, tmp_path)
     return ["search", "-f", paths["gfa"], "-g", paths["gaf"], "-n",
             paths["search_nodelist"], "-s", wl.source, "-d", wl.destination]
 

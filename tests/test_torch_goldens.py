@@ -40,11 +40,35 @@ def read_md5_golden(path=MD5_GOLDEN):
     return out
 
 
+def write_search_inputs(synth, write_gfa1, wl, out_dir):
+    """Write what `search` and `evalPath` read -- graph.gfa, the truth GAF
+    truth.gaf and search_nodelist.tsv -- with one package's writers (not
+    the reads, ~100 MB of FASTQ at full scale); returns the path of each."""
+    d = pathlib.Path(out_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    paths = {"gfa": str(d / "graph.gfa"), "gaf": str(d / "truth.gaf"),
+             "search_nodelist": str(d / "search_nodelist.tsv")}
+    with open(paths["gfa"], "w") as fh:
+        write_gfa1(wl.graph, fh.write)
+    synth.write_truth_gaf(wl, paths["gaf"])
+    pathlib.Path(paths["search_nodelist"]).write_text(
+        "".join(row + "\n" for row in wl.search_nodelist))
+    return paths
+
+
+def port_search_inputs(wl, out_dir):
+    """write_search_inputs with the port's writers."""
+    from gfalign_torch import synth
+    from gfalign_torch.io.writers import write_gfa1
+
+    return write_search_inputs(synth, write_gfa1, wl, out_dir)
+
+
 def test_port_synth_writes_recorded_inputs(tmp_path):
     from gfalign_torch import synth
 
     wl = synth.make_workload(seed=0)
-    paths = synth.write_search_inputs(wl, str(tmp_path))
+    paths = port_search_inputs(wl, tmp_path)
     want = read_md5_golden()
     for key in ("gfa", "gaf"):
         name = pathlib.Path(paths[key]).name
@@ -66,19 +90,14 @@ def _regenerate() -> None:
     wl = synth.make_workload(seed=0)
     with tempfile.TemporaryDirectory() as d:
         d = pathlib.Path(d)
-        with open(d / "graph.gfa", "w") as fh:
-            write_gfa1(wl.graph, fh.write)
-        synth.write_truth_gaf(wl, str(d / "truth.gaf"))
-        (d / "search_nodelist.tsv").write_text(
-            "".join(row + "\n" for row in wl.search_nodelist))
+        paths = write_search_inputs(synth, write_gfa1, wl, d)
         outs = {}
-        for mode, extra in (("search", ["-n", str(d / "search_nodelist.tsv")]
+        for mode, extra in (("search", ["-n", paths["search_nodelist"]]
                              + SEARCH_ARGS),
                             ("evalPath", ["-p", EVALPATH_PATH])):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
-                rc = main([mode, "-f", str(d / "graph.gfa"),
-                           "-g", str(d / "truth.gaf")] + extra)
+                rc = main([mode, "-f", paths["gfa"], "-g", paths["gaf"]] + extra)
             assert rc == 0, mode
             outs[mode] = buf.getvalue().encode()
         SEARCH_GOLDEN.write_bytes(outs["search"])
