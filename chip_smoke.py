@@ -6,7 +6,8 @@ NVIDIA H100.  Run from the repository root, with no arguments:
 
 Phases (each prints a line; any failure raises and exits non-zero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build csrc/nw_path.cu (kernels K1 and K2) with nvcc, timed;
+  2. build csrc/nw_path.cu (kernels K1 and K2) and csrc/seqalign.cu (K3,
+     K4, K5) with nvcc, both compilers started together, timed;
   3. K1 against its plain PyTorch version on the card, bit-exact, at the
      shapes of bench.py (C=128, R=16,384 fw+rc, N=M=64) and on a ragged
      batch with empty rows; timed with CUDA events;
@@ -22,11 +23,26 @@ Phases (each prints a line; any failure raises and exits non-zero):
   7. the search once more, its first PROFILE_FRONTIERS frontier calls under
      torch.profiler (device activity only): device time by kernel and the
      device's idle share of that window's wall, beside the same window's
-     unprofiled wall from phase 5.
+     unprofiled wall from phase 5;
+  8. K3, K4 and K5 against their plain PyTorch versions, bit-exact on every
+     output, on ragged random batches (PAD-masked read stretches, off-band
+     deltas, N codes, all-PAD rows, multi-step paths);
+  9. `align` end to end through gfalign_torch.cli.main.main on CUDA, three
+     runs, each GAF equal to its golden in tests/data/ (md5 and record
+     count) with the launch counters zeroed before and read after: the
+     seeded engine at full width (the 1,142-segment graph of
+     make_workload(seed=0) and the first 1,000 of its reads, 2-8 kb, hifi;
+     must launch K3), a small seeded run whose hand-made reads end on the
+     band edge at both band widths (must launch K4), and the exhaustive
+     engine on a 34-segment graph (must launch K5);
+ 10. K3, K4 and K5 timed against their plain versions at those runs' own
+     shapes: K3 at the seeded run's largest chunk at widths 128 and 512, K4
+     at the largest bucket launched, K5 at the exhaustive run's first call.
 
 A kernel's bound is its useful DP cells times its integer-ALU operations
 per cell (OPS_PER_CELL) over the card's int32 ALU rate, or its bytes over
-HBM bandwidth if larger.
+HBM bandwidth if larger.  For K3-K5 the cells are those of the rows up to
+each read's last non-PAD char (the kernels skip the rest).
 
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Details also go to chiprun_out/chip_smoke.json.
@@ -65,13 +81,30 @@ INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # are left out: Hopper fuses an add into a max (VIADDMNMX) or issues it as
 # IMAD on the FMA pipe.  Issue (128 instructions per SM and clock) binds
 # later: 8/128 and 11/128 instructions per cell against 5/64 and 8/64.
-OPS_PER_CELL = {"packed": 5, "split": 8}
+#
+# From the row loops of csrc/seqalign.cu, by the same rule.  K3: the byte
+# extract of the path char, its PAD compare, the match compare, the two
+# selects of the substitution, two maxes, the in-path compare, its select
+# and its mask bit, the scan's max; then the carry's max, the mask test and
+# select, and the key's max = 16.  K4/K5: the PAD compare, the match
+# compare, the two selects, two maxes, the scan's max, the carry's max and
+# the key's max = 9.  Left out: the adds (fused or IMAD), the key's multiply
+# (IMAD), and the per-row shuffles and barriers of the scan, which a thread
+# pays once per row for its 4 or 16 cells.
+OPS_PER_CELL = {"packed": 5, "split": 8, "banded": 16, "pairs": 9, "cross": 9}
+ALIGN_MAX_SECONDS = 400  # the seeded align phase's share of the script's limit
 PROFILE_FRONTIERS = 300  # frontier calls of the search under the profiler
 KERNELS = {
     "packed": dict(name="nw_fwd_packed (K1)",
                    replaces="gfalign_tpu/ops/nw_pallas.py:159"),
     "split": dict(name="nw_fwd_split (K2)",
                   replaces="gfalign_tpu/ops/nw_pallas.py:59"),
+    "banded": dict(name="sa_banded_fwd (K3)",
+                   replaces="gfalign_tpu/ops/seqalign_pallas.py:257"),
+    "pairs": dict(name="sa_local_fwd pairwise (K4)",
+                  replaces="gfalign_tpu/ops/seqalign_pallas.py:57 via :445"),
+    "cross": dict(name="sa_local_fwd cross product (K5)",
+                  replaces="gfalign_tpu/ops/seqalign_pallas.py:57 via :176"),
 }
 
 
@@ -176,15 +209,18 @@ def phase_card():
 
 
 def phase_build():
-    from gfalign_torch.ops import nw_cuda
+    from gfalign_torch.ops import cuda_build
 
     t0 = time.time()
-    report = nw_cuda.build()
+    stems = ("nw_path", "seqalign")
+    started = {stem: cuda_build.start_build(stem) for stem in stems}  # side by side
+    for stem in stems:
+        report = cuda_build.finish_build(stem, started[stem])
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {stem}: " + line.strip())
     secs = time.time() - t0
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas " + line.strip())
-    log(f"phase 2 build: csrc/nw_path.cu in {secs:.1f} s")
+    log(f"phase 2 build: csrc/nw_path.cu and csrc/seqalign.cu in {secs:.1f} s")
     return secs
 
 
@@ -223,9 +259,9 @@ def phase_k2(gen):
     return res
 
 
-def read_goldens():
+def read_goldens(name="torch_slice_evalpath_seed0.md5"):
     golden = {}
-    for line in (ROOT / "tests/data/torch_slice_evalpath_seed0.md5").read_text().splitlines():
+    for line in (ROOT / "tests/data" / name).read_text().splitlines():
         md5, lines, name = line.split()
         golden[name] = (md5, int(lines))
     return golden
@@ -253,13 +289,12 @@ def run_main(argv):
     return buf.getvalue().encode(), secs, launches
 
 
-def phase_end_to_end(workdir):
+def phase_end_to_end(workdir, wl):
     import gfalign_torch.engine.search as search_mod
     from gfalign_torch import synth
     from gfalign_torch.io.writers import write_gfa1
 
     t0 = time.time()
-    wl = synth.make_workload(seed=0)
     work = pathlib.Path(workdir)
     paths = {"gfa": str(work / "graph.gfa"), "gaf": str(work / "truth.gaf"),
              "search_nodelist": str(work / "search_nodelist.tsv")}
@@ -447,6 +482,343 @@ def phase_main_shapes(largest, long_tensors):
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# align: K3, K4, K5
+# ---------------------------------------------------------------------------
+
+
+def live_rows(read_codes):
+    """Per row, the rows the kernels sweep: up to the last non-PAD char."""
+    import torch
+
+    from gfalign_torch.ops.seqalign import PAD
+
+    idx = torch.arange(1, read_codes.shape[1] + 1, device=read_codes.device)
+    return torch.where(read_codes != PAD, idx, 0).amax(dim=1)
+
+
+def sa_bound(kind, cells, nbytes):
+    ops_s = cells * OPS_PER_CELL[kind] / INT32_ALU_OPS_PER_S
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    if ops_s >= bytes_s:
+        return ops_s * 1e3, "operations"
+    return bytes_s * 1e3, "bytes"
+
+
+def compare_seqalign(kind, args, width=None, plain_cut=None, reps=3):
+    """One of K3/K4/K5 against its plain version on the same CUDA inputs:
+    exact equality of every output, times, and the bound.  `args` are the
+    entry point's tensors: K3 (arena, cum_off, base_ptr, plen, read_pool,
+    read_idx, path_idx, deltas), K4/K5 (read_codes, path_codes).  With
+    plain_cut the plain version runs (and is compared) on the first
+    plain_cut pairs or reads only and its time is scaled up."""
+    import torch
+
+    from gfalign_torch.ops import seqalign, seqalign_cuda
+
+    if kind == "banded":
+        def kernel(a=args):
+            return seqalign.banded_arena_scores(*a, width=width, materialize=False)
+
+        def cut(n):
+            return args[:5] + tuple(x[:n] for x in args[5:])
+
+        def plain(a):
+            return seqalign.banded_arena_scores_ref(*a, width)
+        n_all = args[5].shape[0]
+        rows = live_rows(args[4][args[5].long().clamp(0, args[4].shape[0] - 1)])
+        cells = int(rows.sum()) * width
+        # each pair's read row and strip read once, indices in, 4 words out
+        nbytes = int(rows.sum()) * 2 + n_all * (width + 3 * 4 + 4 * 4)
+        shape = dict(N=n_all, lr=args[4].shape[1], width=width,
+                     S=args[1].shape[1], live_rows=int(rows.sum()))
+    else:
+        pairwise = kind == "pairs"
+        fn = seqalign.batched_pair_scores if pairwise else seqalign.batched_local_scores
+        ref = seqalign.local_forward_pairs_ref if pairwise else seqalign.local_forward_ref
+
+        def kernel(a=args):
+            return fn(*a)
+
+        def cut(n):
+            return (args[0][:n], args[1][:n] if pairwise else args[1])
+
+        def plain(a):
+            return ref(*a)
+        n_all = args[0].shape[0]
+        rows = live_rows(args[0])
+        n_paths = 1 if pairwise else args[1].shape[0]
+        cells = int(rows.sum()) * n_paths * args[1].shape[1]
+        nbytes = args[0].numel() + args[1].numel() + 12 * n_all * n_paths
+        shape = dict(R=n_all, P=args[1].shape[0], lr=args[0].shape[1],
+                     lp=args[1].shape[1], live_rows=int(rows.sum()))
+    before = seqalign_cuda.LAUNCHES[kind]
+    got = kernel()
+    torch.cuda.synchronize()
+    if seqalign_cuda.LAUNCHES[kind] <= before:
+        raise RuntimeError(f"{kind}: the wrapper did not launch its kernel")
+    n_plain = min(n_all, plain_cut or n_all)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = plain(cut(n_plain))
+    t1.record()
+    t1.synchronize()
+    plain_ms = t0.elapsed_time(t1) * (n_all / n_plain)
+    err = 0
+    for g, w in zip(got, want):
+        g = g[:n_plain]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise RuntimeError(f"{kind}: output {tuple(g.shape)} {g.dtype} against "
+                               f"plain {tuple(w.shape)} {w.dtype}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    if err != 0:
+        raise RuntimeError(f"{kind}: kernel differs from its plain version "
+                           f"(max abs err {err}, {shape})")
+    ms = time_ms(kernel, reps=reps)
+    bound_ms, bound_by = sa_bound(kind, cells, nbytes)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_pairs=n_plain,
+                bound_ms=bound_ms, bound_by=bound_by, cells=cells, shape=shape)
+
+
+def ragged_codes(gen, rows, width):
+    """int8 codes 0-4 (4 = N) on the card with PAD tails, PAD-masked
+    stretches inside every third row and some all-PAD rows."""
+    import torch
+
+    from gfalign_torch.ops.seqalign import PAD
+
+    codes = torch.randint(0, 5, (rows, width), generator=gen)
+    col = torch.arange(width)[None, :]
+    lens = torch.randint(0, width + 1, (rows,), generator=gen)
+    codes = torch.where(col < lens[:, None], codes, PAD)
+    lo = torch.randint(0, width, (rows,), generator=gen)
+    hi = lo + torch.randint(0, width // 2 + 1, (rows,), generator=gen)
+    masked = (col >= lo[:, None]) & (col < hi[:, None]) & (torch.arange(rows)[:, None] % 3 == 0)
+    codes = torch.where(masked, PAD, codes)
+    codes[::17] = PAD
+    return codes.to(torch.int8).cuda()
+
+
+def phase_seqalign_ragged(gen):
+    import torch
+
+    # K3 through the arena: random oriented "segments", paths of 1-6 steps
+    # with overlap drops, tables padded with INT32_MAX as DevicePools pads
+    n_paths, s_cap, lr, n_pairs = 96, 8, 256, 512
+    arena = torch.randint(0, 5, (20000,), generator=gen).to(torch.int8)
+    cum_off = torch.full((n_paths, s_cap), (1 << 31) - 1, dtype=torch.int32)
+    base_ptr = torch.zeros((n_paths, s_cap), dtype=torch.int32)
+    plen = torch.zeros((n_paths,), dtype=torch.int32)
+    for p in range(n_paths):
+        pos = 0
+        for k in range(int(torch.randint(1, 7, (1,), generator=gen))):
+            seg_len = int(torch.randint(20, 120, (1,), generator=gen))
+            start = int(torch.randint(0, 20000 - 200, (1,), generator=gen))
+            drop = int(torch.randint(0, 6, (1,), generator=gen)) if k else 0
+            cum_off[p, k] = pos
+            base_ptr[p, k] = start + drop - pos
+            pos += seg_len - drop
+        plen[p] = pos
+    reads = ragged_codes(gen, 200, lr)
+    pools = tuple(x.cuda() for x in (arena, cum_off, base_ptr, plen)) + (reads,)
+    ridx = torch.randint(0, 200, (n_pairs,), generator=gen).int().cuda()
+    pidx = torch.randint(0, n_paths, (n_pairs,), generator=gen).int().cuda()
+    deltas = torch.randint(-40, lr, (n_pairs,), generator=gen).int().cuda()
+    out = {}
+    for width in (16, 128, 512, 2048):
+        res = compare_seqalign("banded", pools + (ridx, pidx, deltas), width=width)
+        out[f"banded_{width}"] = res
+        log(f"phase 8 K3 ragged N={n_pairs} lr={lr} width={width} paths of 1-6 "
+            f"steps: exact; {res['ms']:.3f} ms, plain {res['plain_ms']:.1f} ms")
+    res = compare_seqalign("pairs", (ragged_codes(gen, 64, 300), ragged_codes(gen, 64, 700)))
+    out["pairs"] = res
+    log(f"phase 8 K4 ragged N=64 lr=300 lp=700: exact; {res['ms']:.3f} ms, "
+        f"plain {res['plain_ms']:.1f} ms")
+    res = compare_seqalign("pairs", (ragged_codes(gen, 3, 200), ragged_codes(gen, 3, 9000)))
+    out["pairs_strips"] = res
+    log(f"phase 8 K4 ragged N=3 lr=200 lp=9000 (two column strips): exact; "
+        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.1f} ms")
+    res = compare_seqalign("cross", (ragged_codes(gen, 40, 200), ragged_codes(gen, 24, 300)))
+    out["cross"] = res
+    log(f"phase 8 K5 ragged R=40 P=24 lr=200 lp=300: exact; {res['ms']:.3f} ms, "
+        f"plain {res['plain_ms']:.1f} ms")
+    return out
+
+
+class AlignRecorder:
+    """Wraps the align scorers' entry points for one run: keeps the inputs
+    of the largest call of each kind (for phase 10) and CUDA events around
+    every call, whose sum is the device's busy time in the scorers."""
+
+    def __init__(self):
+        self.largest = {}
+        self.events = []
+        self.calls = {"banded": 0, "pairs": 0, "cross": 0}
+
+    def _wrap(self, kind, fn, size, key):
+        import torch
+
+        def wrapped(*args, **kw):
+            n = size(args)
+            slot = (kind, key(args, kw))
+            if n > self.largest.get(slot, (0,))[0]:
+                self.largest[slot] = (n, tuple(args))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            self.calls[kind] += 1
+            return out
+        return wrapped
+
+    @contextlib.contextmanager
+    def installed(self):
+        from gfalign_torch.ops import seqalign
+
+        saved = {name: getattr(seqalign, name) for name in
+                 ("banded_arena_scores", "batched_pair_scores", "batched_local_scores")}
+        seqalign.banded_arena_scores = self._wrap(
+            "banded", saved["banded_arena_scores"], lambda a: len(a[5]),
+            lambda a, kw: kw.get("width", 128))
+        seqalign.batched_pair_scores = self._wrap(
+            "pairs", saved["batched_pair_scores"],
+            lambda a: a[0].shape[0] * a[0].shape[1] * a[1].shape[1], lambda a, kw: 0)
+        seqalign.batched_local_scores = self._wrap(
+            "cross", saved["batched_local_scores"],
+            lambda a: a[0].shape[0] * a[1].shape[0], lambda a, kw: 0)
+        try:
+            yield self
+        finally:
+            for name, fn in saved.items():
+                setattr(seqalign, name, fn)
+
+    def device_ms(self):
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def run_align(name, runs, golden, workdir):
+    """One `align` run through the CLI on CUDA against its golden GAF."""
+    import torch
+
+    from gfalign_torch.cli.main import main
+    from gfalign_torch.engine import graph_align
+    from gfalign_torch.ops import seqalign_cuda
+
+    gfa, reads, preset = runs[name]
+    for path in (gfa, reads):
+        key = pathlib.Path(path).name
+        if digest(pathlib.Path(path).read_bytes()) != golden[key]:
+            raise RuntimeError(f"{key} differs from the recorded input")
+    out_gaf = pathlib.Path(workdir) / f"{name}.out.gaf"
+    for k in seqalign_cuda.LAUNCHES:
+        seqalign_cuda.LAUNCHES[k] = 0
+    for k in graph_align.PHASE_SECONDS:
+        graph_align.PHASE_SECONDS[k] = 0.0
+    rec = AlignRecorder()
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
+    with rec.installed(), contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = main(["align", "-f", gfa, "-r", reads, "-o", str(out_gaf), "-p", preset])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = dict(seqalign_cuda.LAUNCHES)
+    if rc != 0:
+        raise RuntimeError(f"align ({name}) exited {rc}: {err.getvalue()[-400:]}")
+    if not buf.getvalue().startswith(f"Invoking: gfalign-tpu-align -p {preset} "):
+        raise RuntimeError(f"align ({name}) did not echo its invocation")
+    got = digest(out_gaf.read_bytes())
+    if got != golden[f"{name}.gaf"]:
+        keep = ROOT / "chiprun_out"
+        keep.mkdir(exist_ok=True)
+        (keep / f"{name}.out.gaf").write_bytes(out_gaf.read_bytes())
+        raise RuntimeError(f"align ({name}) GAF {got} differs from the golden "
+                           f"{golden[name + '.gaf']} (kept in chiprun_out/)")
+    n_reads = golden[pathlib.Path(reads).name][1] // 2
+    res = dict(seconds=secs, reads=n_reads, records=got[1], launches=launches,
+               reads_per_s=n_reads / secs, device_ms=rec.device_ms(),
+               phase_seconds=dict(graph_align.PHASE_SECONDS), calls=rec.calls)
+    return res, rec
+
+
+def phase_align(workdir, wl):
+    from tests.test_torch_goldens import ALIGN_SEEDED_READS, port_align_workloads
+
+    t0 = time.time()
+    golden = read_goldens("torch_slice_align_seed0.md5")
+    runs = port_align_workloads(wl, pathlib.Path(workdir) / "align")
+    log(f"phase 9 inputs: three align workloads written in {time.time() - t0:.1f} s")
+    out, recs = {}, {}
+    for name, kernel in (("seeded", "banded"), ("band_edge", "pairs"),
+                         ("exhaustive", "cross")):
+        res, rec = run_align(name, runs, golden, workdir)
+        out[name], recs[name] = res, rec
+        ph = res["phase_seconds"]
+        other = res["seconds"] - sum(ph.values())
+        log(f"phase 9 align {name}: golden md5 and {res['records']} records, "
+            f"{res['reads']} reads in {res['seconds']:.2f} s "
+            f"({res['reads_per_s']:.2f} reads/s); seeding + candidates "
+            f"{ph['seeding']:.2f} s, scoring {ph['scoring']:.2f} s, tracebacks "
+            f"{ph['traceback']:.2f} s, other {other:.2f} s; device busy in the "
+            f"scorers {res['device_ms']:.1f} ms (idle share "
+            f"{1 - res['device_ms'] / 1e3 / res['seconds']:.4f}); launches "
+            f"{res['launches']}")
+        if res["launches"][kernel] == 0:
+            raise RuntimeError(f"align ({name}) did not launch {KERNELS[kernel]['name']}")
+    if out["seeded"]["reads"] != ALIGN_SEEDED_READS:
+        raise RuntimeError("the seeded run's read count differs from the golden's")
+    if out["seeded"]["seconds"] > ALIGN_MAX_SECONDS:
+        log(f"phase 9 WARNING: the seeded align took {out['seeded']['seconds']:.0f} s, "
+            f"over its {ALIGN_MAX_SECONDS} s share of the script's limit: cut "
+            f"ALIGN_SEEDED_READS (tests/test_torch_goldens.py) and remake the golden")
+    return out, recs
+
+
+def phase_seqalign_main_shapes(recs):
+    """K3 at the seeded run's largest chunk per band width, K4 at the
+    largest bucket launched in any run, K5 at the exhaustive run's call."""
+    def largest(kind, key=None):
+        best = None
+        for rec in recs.values():
+            for (k, kk), (n, args) in rec.largest.items():
+                if k == kind and (key is None or kk == key) and (best is None or n > best[0]):
+                    best = (n, args)
+        if best is None:
+            raise RuntimeError(f"no {kind} call was recorded (key {key})")
+        return best[1]
+
+    import torch
+
+    out = {}
+    for width in (128, 512):
+        args = largest("banded", width)
+        # the pools as the run left them; the chunk's indices as it sent them
+        args = tuple(args[:5]) + tuple(torch.as_tensor(x).int().cuda()
+                                       for x in args[5:8])
+        res = compare_seqalign("banded", args, width=width, plain_cut=256)
+        out[f"banded_{width}"] = res
+        log(f"phase 10 K3 at the seeded run's largest chunk, width {width}: "
+            f"{res['shape']}; exact on the first {res['plain_pairs']} pairs; "
+            f"{res['ms']:.3f} ms, plain {res['plain_ms']:.1f} ms (timed on "
+            f"{res['plain_pairs']} pairs, scaled), bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']})")
+    res = compare_seqalign("pairs", largest("pairs"))
+    out["pairs"] = res
+    log(f"phase 10 K4 at the largest bucket launched: {res['shape']}; exact; "
+        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.1f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+    res = compare_seqalign("cross", largest("cross"), plain_cut=64)
+    out["cross"] = res
+    log(f"phase 10 K5 at the exhaustive run's call: {res['shape']}; exact on the "
+        f"first {res['plain_pairs']} reads; {res['ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.1f} ms (timed on {res['plain_pairs']} reads, scaled), "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -462,18 +834,30 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     k1_bench = phase_k1_bench(gen)
     k2_check = phase_k2(gen)
+    from gfalign_torch import synth
+
+    wl = synth.make_workload(seed=0)
     with tempfile.TemporaryDirectory() as workdir:
-        search, evalpath, largest, search_argv = phase_end_to_end(workdir)
+        search, evalpath, largest, search_argv = phase_end_to_end(workdir, wl)
         long_paths, long_tensors = phase_long_paths()
         k1, k2 = phase_main_shapes(largest, long_tensors)
         profile = phase_profile(search_argv, search["window_s"])
+        sa_ragged = phase_seqalign_ragged(gen)
+        align, recs = phase_align(workdir, wl)
+        sa_main = phase_seqalign_main_shapes(recs)
 
     launches = {"packed": search["launches"]["packed"] + evalpath["launches"]["packed"],
-                "split": long_paths["launches"]["split"]}
+                "split": long_paths["launches"]["split"],
+                "banded": align["seeded"]["launches"]["banded"],
+                "pairs": align["band_edge"]["launches"]["pairs"],
+                "cross": align["exhaustive"]["launches"]["cross"]}
     table = []
-    for kind, res in (("packed", k1), ("split", k2)):
+    for kind, res, source in (("packed", k1, "nw_path"), ("split", k2, "nw_path"),
+                              ("banded", sa_main["banded_128"], "seqalign"),
+                              ("pairs", sa_main["pairs"], "seqalign"),
+                              ("cross", sa_main["cross"], "seqalign")):
         table.append(dict(KERNELS[kind], route="cuda",
-                          source="gfalign_torch/csrc/nw_path.cu",
+                          source=f"gfalign_torch/csrc/{source}.cu",
                           launches=launches[kind], max_abs_err=res["max_abs_err"],
                           ms=res["ms"], plain_ms=res["plain_ms"],
                           bound_ms=res["bound_ms"], bound_by=res["bound_by"],
@@ -481,6 +865,7 @@ def main() -> int:
     details = dict(card=smi, device=name, build_s=build_s, k1_bench=k1_bench,
                    k2_check=k2_check, search=search, evalpath=evalpath,
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
+                   seqalign_ragged=sa_ragged, align=align, seqalign_main=sa_main,
                    ops_per_cell=OPS_PER_CELL, seconds=time.time() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

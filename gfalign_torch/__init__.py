@@ -7,10 +7,12 @@ gfalign_tpu.
 
 Subpackages
 -----------
-io        GFA and GAF parsing, writers
+io        GFA, GAF and FASTA/FASTQ parsing, writers
 graph     graph model, name<->id vocab, adjacency, assembly statistics
-ops       NW path scoring: plain PyTorch version and the CUDA kernels
-engine    search, evalPath, evalGFA, alignment-set operations
+ops       NW path scoring and Smith-Waterman read scoring: plain PyTorch
+          versions and the CUDA kernels
+engine    align (seeding, graph aligner), search, evalPath, evalGFA,
+          alignment-set operations
 parallel  the frontier scoring step; a single-process distribution stub
 cli       drop-in command-line surface mirroring the reference's flags
 """

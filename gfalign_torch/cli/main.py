@@ -4,10 +4,10 @@ validateFiles/*.tst command lines run unmodified against this framework.
 
 Six modes: align, evalGFA, subgraph, search, filter, evalPath.  This is
 the PyTorch/CUDA port of gfalign_tpu/cli/main.py: every flag parses as
-there; modes 1-5 run, with search and evalPath scoring on `device` (CUDA
-unless the caller asks for the CPU); `align` is not ported yet and exits 1.
-`-j/--threads` is accepted and ignored (it sized the native host runtime,
-which is not ported yet).
+there, and all six modes run, with align, search and evalPath scoring on
+`device` (CUDA unless the caller asks for the CPU).  `-j/--threads` is
+accepted and ignored (it sized the native host runtime, which is not
+ported yet), and a distributed run raises.
 """
 
 from __future__ import annotations
@@ -293,7 +293,7 @@ def run(ui: UserInput, device: torch.device) -> int:
     from ..utils.log import lg
 
     out = sys.stdout
-    if os.environ.get("GFALIGN_TPU_DISTRIBUTED"):
+    if os.environ.get("GFALIGN_TORCH_DISTRIBUTED"):
         raise NotImplementedError("distributed runs are a later slice")
     if ui.cmd_flag:
         # reference echoes every argv token as typed, incl. argv[0]
@@ -317,8 +317,16 @@ def run(ui: UserInput, device: torch.device) -> int:
 def _run_mode(ui, graph, alignments, out, device) -> int:
     mode = ui.mode
     if mode == 0:
-        print("align: not yet ported to gfalign_torch", file=sys.stderr)
-        return 1
+        from ..engine.aligner import align_mode
+        if ui.in_reads:
+            align_mode(graph, ui.in_reads, ui.out_file, ui.preset,
+                       overrides=ui.align_overrides, echo=True, out=out,
+                       device=device)
+            ui.out_file = ""  # -o was the aligner's GAF; don't let the
+            # evalGFA fall-through below overwrite it with a decorated GFA
+        # falls through to evalGFA behavior (reference
+        # src/input-gfalign.cpp:79-82 has no break after case 0)
+        mode = 1
     if mode == 1:
         if ui.in_align:
             alignments.sort_by_name()

@@ -9,20 +9,19 @@ PyTorch's current stream, and counts its launches in `LAUNCHES`.  It never
 falls back to the plain version: a CUDA tensor launches a kernel or raises.
 
 The library is built at first use with nvcc into build/gfalign_torch/
-(plain C interface, loaded with ctypes); `build()` does it explicitly and
-returns nvcc's register/spill report.
+(plain C interface, loaded with ctypes) by ops/cuda_build.py, whose
+`build("nw_path")` does it explicitly and returns nvcc's register/spill
+report.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
+
+from . import cuda_build
 
 TILE_R = 128                 # reads per block (the read pad quantum on CUDA)
 STRIP = 32                   # widest register strip; wider reads use scratch
@@ -31,41 +30,10 @@ SCRATCH_BYTES = 256 << 20    # strip scratch per launch; C is chunked to fit
 
 LAUNCHES = {"packed": 0, "split": 0}
 
-_SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "nw_path.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "gfalign_torch"
-_LIB_PATH = _BUILD_DIR / "libnw_path.so"
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def build() -> str:
-    """Compile csrc/nw_path.cu for sm_90a unless an up-to-date library is
-    already built; returns nvcc's -Xptxas -v report ('' when cached)."""
-    if (_LIB_PATH.exists()
-            and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime):
-        return ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)  # atomic: a concurrent loader never sees half a file
-    return proc.stderr
-
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(str(_LIB_PATH))
+    lib = cuda_build.load("nw_path")
     for fn in (lib.nw_fwd_packed, lib.nw_fwd_split):
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int

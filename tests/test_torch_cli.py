@@ -1,7 +1,8 @@
 """The port's CLI (`python -m gfalign_torch`, device cpu) against the JAX
 package's (`gfalign_tpu.cli.main.main`): stdout and every output file
 byte-equal for search, evalPath, filter, subgraph and evalGFA, on a
-synthetic assembly workload and on randomized tangles."""
+synthetic assembly workload and on randomized tangles (align has its own
+file, tests/test_torch_align.py)."""
 
 import contextlib
 import io
@@ -147,15 +148,26 @@ def test_synth_matches_jax(kw, tmp_path):
     assert (tmp_path / "mine.gaf").read_bytes() == (tmp_path / "ref.gaf").read_bytes()
 
 
-def test_align_mode_is_not_ported(workload, capsys):
+def test_align_mode_is_not_ported(workload, capsys, monkeypatch):
+    """What of align mode is still not ported: a distributed align raises.
+    The mode itself runs: without reads it falls through into evalGFA, as
+    in the JAX package, and exits 0."""
     _, paths = workload
-    assert torch_main(["align", "-f", paths["gfa"]], device="cpu") == 1
-    assert "align: not yet ported to gfalign_torch" in capsys.readouterr().err
+    assert torch_main(["align", "-f", paths["gfa"]], device="cpu") == 0
+    assert "not yet ported" not in capsys.readouterr().err
+    from gfalign_torch.engine.graph_align import run_graph_aligner
+    from gfalign_torch.io.gfa import read_gfa
+
+    reads = pathlib.Path(paths["gfa"]).with_name("one.fa")
+    reads.write_text(">r\nACGTACGTACGTACGTACGTACGT\n")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        run_graph_aligner(read_gfa(paths["gfa"]), [str(reads)], "", shard=(0, 2),
+                          device="cpu")
 
 
 def test_distributed_mode_is_a_later_slice(workload, monkeypatch):
     wl, paths = workload
-    monkeypatch.setenv("GFALIGN_TPU_DISTRIBUTED", "1")
+    monkeypatch.setenv("GFALIGN_TORCH_DISTRIBUTED", "1")
     with pytest.raises(NotImplementedError, match="later slice"):
         torch_main(["evalPath", "-f", paths["gfa"], "-g", paths["gaf"],
                     "-p", wl.true_path], device="cpu")

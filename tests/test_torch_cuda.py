@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA kernels K1/K2 against their plain PyTorch
-version, and the frontier step and CLI on CUDA against the CPU run.  Every
+"""The port on the card: the CUDA kernels K1-K5 against their plain PyTorch
+versions, and the frontier step and CLI on CUDA against the CPU run.  Every
 test needs a CUDA device and skips without one.  This file imports neither
 jax nor the JAX package, so on a machine without jax it runs without the
 suite's conftest:
@@ -18,7 +18,7 @@ import torch
 from gfalign_torch import synth
 from gfalign_torch.cli.main import main
 from gfalign_torch.engine.evaluate import evaluate_candidates
-from gfalign_torch.ops import nw_cuda
+from gfalign_torch.ops import nw_cuda, seqalign, seqalign_cuda
 from gfalign_torch.ops.nw_path import Step, nw_pair_scores_ref
 from tests.test_torch_goldens import port_search_inputs
 
@@ -99,3 +99,87 @@ def test_cli_on_cuda_matches_cpu(cuda, tmp_path):
                             device=dev) == 0
             outs[mode, dev] = buf.getvalue()
         assert outs[mode, "cuda"] == outs[mode, "cpu"] != ""
+
+
+def code_grid(seed, rows, width):
+    """int8 codes 0-4 with PAD tails, mid-row PAD masks and an all-PAD row."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 5, (rows, width)).astype(np.int8)
+    for i in range(rows):
+        a[i, int(rng.integers(0, width + 1)):] = seqalign.PAD
+        if i % 3 == 0:
+            lo = int(rng.integers(0, width))
+            a[i, lo:int(rng.integers(lo, width))] = seqalign.PAD
+    a[0, :] = seqalign.PAD
+    return torch.from_numpy(a)
+
+
+def assert_outputs_equal(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(9, 7, 37, 45), (33, 5, 100, 130),
+                                   (6, 3, 300, 2500), (3, 3, 200, 9000),
+                                   (2, 2, 40000, 64)],
+                         ids=["tiny", "one-warp", "warps", "strips", "wide-key"])
+def test_local_kernels_match_plain(shape, cuda):
+    R, P, lr, lp = shape
+    reads = code_grid(1, R, lr).to(cuda)
+    paths = code_grid(2, P, lp).to(cuda)
+    before = dict(seqalign_cuda.LAUNCHES)
+    got = seqalign.batched_local_scores(reads, paths)              # K5
+    assert_outputs_equal(got, seqalign.local_forward_ref(reads, paths))
+    pair_paths = code_grid(3, R, lp).to(cuda)
+    got = seqalign.batched_pair_scores(reads, pair_paths)          # K4
+    assert_outputs_equal(got, seqalign.local_forward_pairs_ref(reads, pair_paths))
+    assert seqalign_cuda.LAUNCHES["cross"] > before["cross"]
+    assert seqalign_cuda.LAUNCHES["pairs"] > before["pairs"]
+
+
+@pytest.mark.parametrize("width", [8, 16, 128, 512, 520, 2048])
+def test_banded_kernel_matches_plain(width, cuda):
+    reads = code_grid(4, 40, 300).to(cuda)
+    paths = code_grid(5, 40, 700).to(cuda)
+    deltas = torch.from_numpy(np.random.default_rng(6).integers(-40, 300, 40)
+                              .astype(np.int32)).to(cuda)
+    before = seqalign_cuda.LAUNCHES["banded"]
+    got = seqalign.banded_pair_scores(reads, paths, deltas, width=width)   # K3
+    assert_outputs_equal(got, seqalign._banded_forward(reads, paths, deltas,
+                                                       width=width))
+    assert seqalign_cuda.LAUNCHES["banded"] > before
+
+
+def test_seqalign_kernels_reject_bad_inputs(cuda):
+    reads, paths = code_grid(1, 4, 32).to(cuda), code_grid(2, 4, 48).to(cuda)
+    with pytest.raises(TypeError):
+        seqalign.batched_pair_scores(reads.int(), paths)
+    with pytest.raises(ValueError):
+        seqalign.batched_pair_scores(reads, paths.cpu())
+    with pytest.raises(ValueError):
+        seqalign.batched_pair_scores(reads, paths[:3])
+    with pytest.raises(ValueError):
+        seqalign_cuda.local_forward_cuda(reads.t(), paths, pairwise=False)
+    with pytest.raises(ValueError, match="band width"):
+        seqalign.banded_pair_scores(reads, paths, torch.zeros(4, dtype=torch.int32),
+                                    width=6)
+
+
+@pytest.mark.parametrize("kw", [dict(seed=41, n_segments=120, n_reads=10,
+                                     seg_len=(120, 400), read_len=(300, 900),
+                                     sub_rate=0.01, ins_rate=0.002, del_rate=0.002),
+                                dict(seed=3, n_segments=12, n_reads=12,
+                                     seg_len=(60, 120), read_len=(80, 200),
+                                     bubble_every=4, tangle_k=2)],
+                         ids=["seeded", "exhaustive"])
+def test_align_on_cuda_matches_cpu(kw, cuda, tmp_path):
+    paths = synth.write_workload(synth.make_workload(**kw), str(tmp_path))
+    gafs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.gaf"
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["align", "-f", paths["gfa"], "-r", paths["reads"], "-o",
+                         str(out)], device=dev) == 0
+        gafs[dev] = out.read_bytes()
+    assert gafs["cuda"] == gafs["cpu"] != b""

@@ -8,7 +8,14 @@ were produced by the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python tests/test_torch_goldens.py --regenerate
 
-The tier-1 test below checks that the port's own workload generator still
+(`--regenerate-align` redoes only the align goldens below.)
+
+`tests/data/torch_slice_align_seed0.md5` holds the md5 and record count of
+the inputs and GAFs of the three `align` runs of chip_smoke.py (see
+`align_workloads`), made by the JAX package on the CPU with its device
+scoring ladder (GFALIGN_TPU_ALIGN_DEVICE=1); the same command writes it.
+
+The tier-1 tests below check that the port's own workload generator still
 writes the recorded inputs, so that the chip run's comparison against the
 goldens stays meaningful.
 """
@@ -17,11 +24,14 @@ from __future__ import annotations
 
 import hashlib
 import pathlib
+import random
 import sys
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 SEARCH_GOLDEN = DATA / "torch_slice_search_seed0.out"
 MD5_GOLDEN = DATA / "torch_slice_evalpath_seed0.md5"
+ALIGN_MD5_GOLDEN = DATA / "torch_slice_align_seed0.md5"
+ALIGN_SEEDED_READS = 1000   # of make_workload(seed=0)'s 10,000 (a cut, PERF.md)
 SEARCH_ARGS = ["-s", "498", "-d", "503"]
 EVALPATH_PATH = "498+,499+,500+,501+,502+,503+"
 
@@ -64,6 +74,95 @@ def port_search_inputs(wl, out_dir):
     return write_search_inputs(synth, write_gfa1, wl, out_dir)
 
 
+def _write_reads(path, reads):
+    with open(path, "w") as fh:
+        for name, seq in reads:
+            fh.write(f">{name}\n{seq}\n")
+
+
+def band_edge_reads(wl, n_reads=12, seed=7, piece=1000, band=128,
+                    wide_band=512):
+    """Hand-made error-free reads along the backbone of `wl` whose optimum
+    ends on the band's edge lane at width `band` AND at width `wide_band`,
+    so that the seeded aligner's ladder hands them to the full DP: three
+    pieces of `piece` bases of one path, the second and third shifted
+    against the first piece's diagonal by band/2 - 1 and wide_band/2 - 1
+    bases (deletions: the last lane; even reads) or by -band/2 and
+    -wide_band/2 (insertions of random bases: lane 0; odd reads)."""
+    rng = random.Random(seed)
+    segs = {seg.name: seg.seq for seg in wl.graph.segments}
+    d1, d2 = band // 2 - 1, wide_band // 2 - 1
+    reads = []
+    for t in range(n_reads):
+        i = 3 + 8 * t
+        parts = []
+        while sum(map(len, parts)) < 3 * piece + wide_band:
+            parts.append(segs[wl.backbone[i]])
+            i += 1
+        bb = "".join(parts)[37:]
+        if t % 2 == 0:
+            seq = (bb[:piece] + bb[piece + d1:2 * piece + d1]
+                   + bb[2 * piece + d2:3 * piece + d2])
+        else:
+            junk = "".join(rng.choice("ACGT") for _ in range(wide_band // 2))
+            seq = (bb[:piece] + junk[:band // 2] + bb[piece:2 * piece]
+                   + junk[band // 2:] + bb[2 * piece:3 * piece])
+        reads.append((f"edge{t}", seq))
+    return reads
+
+
+def align_workloads(synth, write_gfa1, full_scale_wl, out_dir):
+    """Write the inputs of chip_smoke.py's three `align` runs with one
+    package's generator and writers; returns {name: (gfa, reads, preset)}.
+
+    seeded      the graph of make_workload(seed=0) (1,142 segments) and the
+                first ALIGN_SEEDED_READS of its reads (2-8 kb), hifi;
+    band_edge   a 120-segment graph (seeded engine), its 10 reads of
+                300-900 bases and `band_edge_reads`, hifi: the run that
+                reaches the full pairwise DP;
+    exhaustive  a 30-segment graph with bubbles (34 segments, under
+                SEED_THRESHOLD = 48) and 200 reads of 150-400 bases, hifi:
+                the exhaustive engine."""
+    d = pathlib.Path(out_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    edge_wl = synth.make_workload(seed=41, n_segments=120, n_reads=10,
+                                  seg_len=(120, 400), read_len=(300, 900),
+                                  sub_rate=0.01, ins_rate=0.002, del_rate=0.002)
+    small_wl = synth.make_workload(seed=5, n_segments=30, n_reads=200,
+                                   seg_len=(60, 150), read_len=(150, 400),
+                                   tangle_k=2)
+    out = {}
+    for name, wl, reads in (
+            ("seeded", full_scale_wl, full_scale_wl.reads[:ALIGN_SEEDED_READS]),
+            ("band_edge", edge_wl, edge_wl.reads + band_edge_reads(edge_wl)),
+            ("exhaustive", small_wl, small_wl.reads)):
+        gfa, fa = str(d / f"{name}.gfa"), str(d / f"{name}.fa")
+        with open(gfa, "w") as fh:
+            write_gfa1(wl.graph, fh.write)
+        _write_reads(fa, reads)
+        out[name] = (gfa, fa, "hifi")
+    return out
+
+
+def port_align_workloads(full_scale_wl, out_dir):
+    """align_workloads with the port's generator and writers."""
+    from gfalign_torch import synth
+    from gfalign_torch.io.writers import write_gfa1
+
+    return align_workloads(synth, write_gfa1, full_scale_wl, out_dir)
+
+
+def test_port_synth_writes_recorded_align_inputs(tmp_path):
+    from gfalign_torch import synth
+
+    want = read_md5_golden(ALIGN_MD5_GOLDEN)
+    runs = port_align_workloads(synth.make_workload(seed=0), tmp_path)
+    for name, (gfa, fa, _) in runs.items():
+        for path in (gfa, fa):
+            key = pathlib.Path(path).name
+            assert digest(pathlib.Path(path).read_bytes()) == want[key], key
+
+
 def test_port_synth_writes_recorded_inputs(tmp_path):
     from gfalign_torch import synth
 
@@ -75,7 +174,7 @@ def test_port_synth_writes_recorded_inputs(tmp_path):
         assert digest(pathlib.Path(paths[key]).read_bytes()) == want[name], name
 
 
-def _regenerate() -> None:
+def _regenerate(align_only: bool = False) -> None:
     import contextlib
     import io
     import tempfile
@@ -90,6 +189,9 @@ def _regenerate() -> None:
     wl = synth.make_workload(seed=0)
     with tempfile.TemporaryDirectory() as d:
         d = pathlib.Path(d)
+        _regenerate_align(synth, write_gfa1, main, wl, d / "align")
+        if align_only:
+            return
         paths = write_search_inputs(synth, write_gfa1, wl, d)
         outs = {}
         for mode, extra in (("search", ["-n", paths["search_nodelist"]]
@@ -108,8 +210,39 @@ def _regenerate() -> None:
                                       for m, n, name in rows))
 
 
+def _regenerate_align(synth, write_gfa1, main, full_scale_wl, d) -> None:
+    """The three align GAFs by the JAX package's device scoring ladder on
+    the CPU.  ALIGN_ONLY in the environment names one run to redo (the
+    others keep their rows); ALIGN_KEEP_DIR names a directory that gets a
+    copy of each GAF."""
+    import os
+    import time
+
+    os.environ["GFALIGN_TPU_ALIGN_DEVICE"] = "1"
+    runs = align_workloads(synth, write_gfa1, full_scale_wl, d)
+    only = os.environ.get("ALIGN_ONLY")
+    keep = os.environ.get("ALIGN_KEEP_DIR")
+    rows = read_md5_golden(ALIGN_MD5_GOLDEN) if ALIGN_MD5_GOLDEN.exists() else {}
+    for name, (gfa, fa, preset) in runs.items():
+        for path in (gfa, fa):
+            rows[pathlib.Path(path).name] = digest(pathlib.Path(path).read_bytes())
+        if only and name != only:
+            continue
+        out = pathlib.Path(d) / f"{name}.gaf"
+        t0 = time.time()
+        rc = main(["align", "-f", gfa, "-r", fa, "-o", str(out), "-p", preset])
+        assert rc == 0, name
+        rows[out.name] = digest(out.read_bytes())
+        print(f"{name}: {rows[out.name]} in {time.time() - t0:.0f} s", flush=True)
+        if keep:
+            pathlib.Path(keep, out.name).write_bytes(out.read_bytes())
+        ALIGN_MD5_GOLDEN.write_text("".join(
+            f"{m}  {n}  {key}\n" for key, (m, n) in sorted(rows.items())))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--regenerate"]:
-        raise SystemExit("usage: python tests/test_torch_goldens.py --regenerate")
+    if sys.argv[1:] not in (["--regenerate"], ["--regenerate-align"]):
+        raise SystemExit("usage: python tests/test_torch_goldens.py "
+                         "--regenerate | --regenerate-align")
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-    _regenerate()
+    _regenerate(align_only=sys.argv[1] == "--regenerate-align")

@@ -1,6 +1,7 @@
 """The port stands alone: no module of gfalign_torch, and not
-chip_smoke.py, imports jax or anything of gfalign_tpu, and the CLI imports
-with jax made unimportable."""
+chip_smoke.py, imports jax or anything of gfalign_tpu or reads one of the
+JAX package's environment variables, and the CLI imports with jax made
+unimportable."""
 
 import ast
 import pathlib
@@ -29,6 +30,25 @@ def test_source_imports_neither_jax_nor_the_jax_package(source):
     tree = ast.parse((ROOT / source).read_text(), filename=source)
     bad = sorted(set(_imported_roots(tree)) & set(FORBIDDEN))
     assert not bad, f"{source} imports {bad}"
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_source_reads_no_variable_of_the_jax_package(source):
+    """The port's environment variables are GFALIGN_TORCH_*; a string that
+    names a GFALIGN_TPU_* variable would be a read of the JAX package's."""
+    tree = ast.parse((ROOT / source).read_text(), filename=source)
+    bad = sorted({node.value for node in ast.walk(tree)
+                  if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                  and node.value.startswith("GFALIGN_TPU_")})
+    assert not bad, f"{source} names {bad}"
+
+
+def test_align_modules_are_scanned():
+    for name in ("gfalign_torch/io/fastq.py", "gfalign_torch/ops/seqalign.py",
+                 "gfalign_torch/ops/seqalign_cuda.py", "gfalign_torch/ops/cuda_build.py",
+                 "gfalign_torch/engine/seeding.py", "gfalign_torch/engine/graph_align.py",
+                 "gfalign_torch/engine/aligner.py", "chip_smoke.py"):
+        assert name in SOURCES, name
 
 
 def test_every_module_imports_with_jax_blocked():
