@@ -7,11 +7,16 @@ NVIDIA H100.  Run from the repository root, with no arguments:
 Phases (each prints a line; any failure raises and exits non-zero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build csrc/nw_path.cu (kernels K1 and K2) and csrc/seqalign.cu (K3,
-     K4, K5) with nvcc, both compilers started together, timed;
+     K4, K5) with nvcc, both compilers started together, timed; then the
+     machine instructions per DP cell of every K1 and K2 row loop, counted
+     in cuobjdump's disassembly of the built library;
   3. K1 against its plain PyTorch version on the card, bit-exact, at the
-     shapes of bench.py (C=128, R=16,384 fw+rc, N=M=64) and on a ragged
-     batch with empty rows; timed with CUDA events;
-  4. K2 against its plain version at n + m >= 8192;
+     shapes of bench.py (C=128, R=16,384 fw+rc, N=M=64) and on ragged
+     batches with empty rows (search-like short reads in every length
+     bucket, a candidate count that is no multiple of the chunk, reads of
+     33 and 64 steps that sweep strips); timed with CUDA events;
+  4. K2 against its plain version at n + m >= 8192: a ragged batch of 512
+     pairs, then 1, 3 and 200 pairs, and a read wider than one block;
   5. the slice end to end at full scale (synth.make_workload(seed=0):
      1,000 segments, 10,000 reads): `search` and `evalPath` through
      gfalign_torch.cli.main.main on CUDA, byte-equal to the goldens in
@@ -19,7 +24,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
      K2); launch counters are zeroed before and read after each of these
      three runs, and each run must have launched its kernel;
   6. K1 and K2 timed against their plain versions at the main path's own
-     shapes (the largest search frontier; the long-path batch);
+     shapes (the largest search frontier; the long-path batch); phases 3,
+     4 and 6 print the time recorded for the thread-per-pair layout that
+     these kernels replaced (OLD_LAYOUT_MS) beside the new one;
   7. the search once more, its first PROFILE_FRONTIERS frontier calls under
      torch.profiler (device activity only): device time by kernel and the
      device's idle share of that window's wall, beside the same window's
@@ -44,6 +51,9 @@ per cell (OPS_PER_CELL) over the card's int32 ALU rate, or its bytes over
 HBM bandwidth if larger.  For K3-K5 the cells are those of the rows up to
 each read's last non-PAD char (the kernels skip the rest).
 
+`python3 chip_smoke.py --nw` stops after phase 4 (build, K1 and K2 against
+their plain versions: under a minute) and prints no result line.
+
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Details also go to chiprun_out/chip_smoke.json.
 It needs a CUDA device and this repository; it imports neither jax nor
@@ -57,6 +67,7 @@ import hashlib
 import io
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -92,6 +103,14 @@ INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # (IMAD), and the per-row shuffles and barriers of the scan, which a thread
 # pays once per row for its 4 or 16 cells.
 OPS_PER_CELL = {"packed": 5, "split": 8, "banded": 16, "pairs": 9, "cross": 9}
+# K1 and K2 as first ported (one thread per pair, a block per candidate x 128
+# reads), timed by this script at the same shapes on an NVIDIA H100 80GB HBM3
+# at 700.00 W (PERF.md section 6 keeps the record), then with the host's
+# launch overhead inside the events, which adds some 0.05 ms to the shortest:
+# printed beside the times of the present design, never compared by the
+# script.  gfalign_torch/bench_nw.py times both layouts in one way.
+OLD_LAYOUT_MS = {"k1_bench": 7.331, "k1_main": 0.313, "k2_check": 13.78,
+                 "k2_main": 176.2}
 ALIGN_MAX_SECONDS = 400  # the seeded align phase's share of the script's limit
 PROFILE_FRONTIERS = 300  # frontier calls of the search under the profiler
 KERNELS = {
@@ -113,7 +132,10 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, warmup: int = 1, reps: int = 5) -> float:
-    """Median wall time of fn() on the card, by CUDA events."""
+    """Median time of fn() on the card, by CUDA events.  The card is kept
+    busy (a spin of about a millisecond) while the host enqueues fn's work,
+    so that the events bracket the device's time for it and not the host's
+    time to launch it, which for a kernel of 0.1 ms is the larger."""
     import torch
 
     for _ in range(warmup):
@@ -122,6 +144,7 @@ def time_ms(fn, warmup: int = 1, reps: int = 5) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -131,67 +154,76 @@ def time_ms(fn, warmup: int = 1, reps: int = 5) -> float:
 
 
 def bound(a_keys, a_len, b_keys, b_len, kind):
-    """(least ms, 'bytes' or 'operations', useful cells) for scoring these
-    inputs: the useful cells (sum over pairs of a_len x b_len) times the
-    kernel's ALU operations per cell over the int32 ALU rate, against each
-    input read once and the output written once over HBM bandwidth."""
-    cells = int(a_len.sum()) * int(b_len.sum())
+    """(least ms, 'bytes' or 'operations', useful cells) for the best-of-both
+    scores of these inputs: the useful cells (sum over pairs of a_len x
+    b_len, both orientations) times the kernel's ALU operations per cell
+    over the int32 ALU rate, against each input read once (the read keys in
+    both orientations) and the output written once over HBM bandwidth."""
+    cells = int(a_len.sum()) * 2 * int(b_len.sum())
     ops_s = cells * OPS_PER_CELL[kind] / INT32_ALU_OPS_PER_S
-    nbytes = 4 * (a_keys.numel() + a_len.numel() + b_keys.numel()
-                  + b_len.numel() + a_len.numel() * b_len.numel())
+    nbytes = 4 * (a_keys.numel() + a_len.numel() + 2 * b_keys.numel()
+                  + 2 * b_len.numel() + a_len.numel() * b_len.numel())
     bytes_s = nbytes / HBM_BYTES_PER_S
     if ops_s >= bytes_s:
         return ops_s * 1e3, "operations", cells
     return bytes_s * 1e3, "bytes", cells
 
 
-def compare(kind, a_keys, a_len, b_keys, b_len, reps=5):
-    """Kernel vs plain version on the same CUDA inputs: exact equality,
-    times, and the bound.  Launches made here are comparison launches."""
+def compare(kind, a_keys, a_len, b_keys, b_len, reps=5, operand=None):
+    """Kernel vs plain version on the same CUDA inputs: max(forward,
+    reverse-complement) scores of every candidate against every read,
+    exact equality, times, and the bound.  The kernel is timed as the main
+    path launches it, on a read operand prepared beforehand (`operand`, or
+    one made here from b_keys and b_len); the plain version scores the
+    stacked forward and reverse-complement rows.  Launches made here are
+    comparison launches."""
     import torch
 
     from gfalign_torch.ops import nw_cuda
-    from gfalign_torch.ops.nw_path import nw_pair_scores_ref
+    from gfalign_torch.ops.nw_path import nw_best_scores_ref
 
+    if operand is None:
+        operand = nw_cuda.ReadOperand(b_keys, b_len)
+    R = b_keys.shape[0]
     before = nw_cuda.LAUNCHES[kind]
-    got = nw_cuda.nw_pair_scores_cuda(a_keys, a_len, b_keys, b_len)
+    got = operand.to_caller_order(nw_cuda.scores_prepared(a_keys, a_len, operand))[:, :R]
     torch.cuda.synchronize()
     if nw_cuda.LAUNCHES[kind] <= before:
         raise RuntimeError(f"{kind}: the wrapper did not launch its kernel")
-    want = nw_pair_scores_ref(a_keys, a_len, b_keys, b_len)
+    want = nw_best_scores_ref(a_keys, a_len, b_keys, b_len)
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
     if err != 0 or not torch.equal(got, want):
         raise RuntimeError(f"{kind}: kernel differs from its plain version "
                            f"(max abs err {err})")
-    ms = time_ms(lambda: nw_cuda.nw_pair_scores_cuda(a_keys, a_len, b_keys, b_len),
-                 reps=reps)
-    plain_ms = time_ms(lambda: nw_pair_scores_ref(a_keys, a_len, b_keys, b_len),
+    ms = time_ms(lambda: nw_cuda.scores_prepared(a_keys, a_len, operand), reps=reps)
+    plain_ms = time_ms(lambda: nw_best_scores_ref(a_keys, a_len, b_keys, b_len),
                        warmup=0, reps=max(1, reps // 2))
     bound_ms, bound_by, cells = bound(a_keys, a_len, b_keys, b_len, kind)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, cells=cells,
                 shape=dict(C=a_keys.shape[0], n=a_keys.shape[1],
-                           rows=b_keys.shape[0], m=b_keys.shape[1]))
+                           rows=2 * R, m=b_keys.shape[1]))
 
 
-def random_keys(gen, C, n, R, m, nodes, ragged):
+def random_keys(gen, C, n, R, m, nodes, ragged, max_read=None):
     """Candidate and read key batches on the card (pads -1 / -2); ragged
-    batches draw lengths in [0, width] and force some empty rows."""
+    batches draw lengths in [0, width] (reads in [0, max_read] when given)
+    and force some empty rows."""
     import torch
 
-    def keys(rows, width, pad, orients):
+    def keys(rows, width, pad, orients, longest):
         k = (torch.randint(0, nodes, (rows, width), generator=gen) * 4
              + torch.randint(0, orients, (rows, width), generator=gen))
         if ragged:
-            lens = torch.randint(0, width + 1, (rows,), generator=gen)
+            lens = torch.randint(0, longest + 1, (rows,), generator=gen)
             lens[::17] = 0
         else:
             lens = torch.full((rows,), width)
         k = torch.where(torch.arange(width)[None, :] < lens[:, None], k, pad)
         return k.int().cuda(), lens.int().cuda()
 
-    a_keys, a_len = keys(C, n, -1, 3)
-    b_keys, b_len = keys(R, m, -2, 2)
+    a_keys, a_len = keys(C, n, -1, 3, n)
+    b_keys, b_len = keys(R, m, -2, 2, m if max_read is None else max_read)
     return a_keys, a_len, b_keys, b_len
 
 
@@ -221,28 +253,66 @@ def phase_build():
                 log(f"  ptxas {stem}: " + line.strip())
     secs = time.time() - t0
     log(f"phase 2 build: csrc/nw_path.cu and csrc/seqalign.cu in {secs:.1f} s")
-    return secs
+    return secs, sass_per_cell(cuda_build)
+
+
+def sass_per_cell(cuda_build):
+    """Machine instructions per DP cell of every K1 and K2 row loop, read off
+    the built library.  Both kernels spend two max-type instructions on a
+    cell (K1 two add-then-max; K2 a max and an add-then-max), so an
+    innermost loop's count of them gives its cells.  'alu' leaves out loads,
+    stores, branches, barriers and shuffles."""
+    not_alu = ("LD", "ST", "BRA", "BAR", "SHFL", "BSSY", "BSYNC", "NOP", "WARPSYNC",
+               "EXIT", "CALL", "RET", "ATOM", "RED")
+    out = []
+    try:
+        loops = cuda_build.sass_inner_loops("nw_path")
+    except (RuntimeError, OSError, subprocess.CalledProcessError) as exc:
+        log(f"  sass: not measured ({exc})")
+        return out
+    for loop in loops:
+        ops = loop["opcodes"]
+        if "nw_fwd_" not in loop["function"]:
+            continue
+        cells = sum(v for k, v in ops.items() if "MNMX" in k) // 2
+        if cells < 2:
+            continue
+        alu = sum(v for k, v in ops.items() if not k.startswith(not_alu))
+        kernel = re.search(r"nw_fwd_\w+?(?=I|ILi|Pv|PK)", loop["function"])
+        row = dict(kernel=kernel.group(0) if kernel else loop["function"],
+                   cells=cells, instructions=loop["instructions"], alu=alu,
+                   per_cell=loop["instructions"] / cells, alu_per_cell=alu / cells,
+                   opcodes=ops)
+        out.append(row)
+        log(f"  sass {row['kernel']}: row loop of {cells:g} cells, "
+            f"{row['instructions']} instructions ({row['per_cell']:.2f} a cell), "
+            f"{alu} ALU ({row['alu_per_cell']:.2f} a cell)")
+    if not out:
+        log("  sass: no K1/K2 row loop recognised in the disassembly")
+    return out
 
 
 def phase_k1_bench(gen):
-    import torch
-
-    from gfalign_torch.ops.nw_path import rc_keys_device
-
     C, R, N, M = 128, 16384, 64, 64
-    a_keys, a_len, b_keys, b_len = random_keys(gen, C, N, R, M, 40, False)
-    both = torch.cat([b_keys, rc_keys_device(b_keys, b_len)])
-    both_len = torch.cat([b_len, b_len])
-    res = compare("packed", a_keys, a_len, both, both_len, reps=3)
+    res = compare("packed", *random_keys(gen, C, N, R, M, 40, False), reps=3)
     records_per_s = C * R / (res["ms"] / 1e3)
     gcells = res["cells"] / (res["ms"] / 1e3) / 1e9
-    log(f"phase 3 K1 bench shape C={C} R={R} (2R rows) N=M={N}: exact; "
-        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
+    log(f"phase 3 K1 bench shape C={C} R={R} (fw + rc: 2R rows) N=M={N}: exact; "
+        f"{res['ms']:.3f} ms (thread-per-pair layout, recorded: "
+        f"{OLD_LAYOUT_MS['k1_bench']} ms), plain {res['plain_ms']:.3f} ms, "
         f"{records_per_s:.4g} records/s, {gcells:.4g} useful Gcell/s, "
         f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
-    ragged = compare("packed", *random_keys(gen, 64, 64, 4096, 64, 6, True), reps=3)
-    log(f"phase 3 K1 ragged batch with empty rows C=64 rows=4096 N=M=64: exact; "
-        f"{ragged['ms']:.3f} ms")
+    ragged = {}
+    # (C, n, R, m, nodes, longest read): search-like with every length bucket
+    # and a ragged candidate chunk; one strip plus one column; two strips
+    for name, shape in (("search_like", (37, 8, 5000, 16, 6, 15)),
+                        ("m33", (9, 24, 1000, 33, 5, 33)),
+                        ("m64", (64, 64, 2048, 64, 6, 64))):
+        r = compare("packed", *random_keys(gen, *shape[:5], True, shape[5]), reps=3)
+        ragged[name] = r
+        log(f"phase 3 K1 ragged batch with empty rows {name} C={shape[0]} "
+            f"R={shape[2]} n={shape[1]} m={shape[3]}: exact; {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms")
     return dict(bench=res, records_per_s=records_per_s, gcell_per_s=gcells,
                 ragged=ragged)
 
@@ -250,13 +320,26 @@ def phase_k1_bench(gen):
 def phase_k2(gen):
     from gfalign_torch.ops import nw_cuda
 
-    before = nw_cuda.LAUNCHES["split"]
-    res = compare("split", *random_keys(gen, 2, 6144, 256, 2048, 50, True), reps=3)
-    if nw_cuda.LAUNCHES["split"] <= before:
-        raise RuntimeError("K2 was not launched")
-    log(f"phase 4 K2 C=2 rows=256 n=6144 m=2048: exact; {res['ms']:.3f} ms, "
+    res = compare("split", *random_keys(gen, 2, 6144, 128, 2048, 50, True), reps=3)
+    log(f"phase 4 K2 C=2 R=128 (256 rows) n=6144 m=2048: exact; {res['ms']:.3f} ms "
+        f"(thread-per-pair layout, recorded: {OLD_LAYOUT_MS['k2_check']} ms), "
         f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms")
-    return res
+    few = {}
+    # (C, n, R, m, longest read): 1, 3 and 200 (candidate, read) pairs at
+    # n + m >= 8192, and a read wider than one block's columns (super-strips)
+    for name, shape in (("1_pair", (1, 8190, 1, 64, False)),
+                        ("3_pairs", (3, 8000, 1, 600, False)),
+                        ("200_pairs", (2, 8190, 100, 8, True)),
+                        ("wide_read", (1, 300, 2, 9000, False))):
+        C, n, R, m, ragged = shape
+        keys = random_keys(gen, C, n, R, m, 30, ragged)
+        r = compare("split", *keys, reps=1)
+        few[name] = r
+        live = int((keys[3] > 0).sum())
+        log(f"phase 4 K2 {name} C={C} R={R} n={n} m={m} (K, T) = "
+            f"{nw_cuda.split_layout(int(keys[3].max()), 2 * C * live)}: exact; "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+    return dict(res, few=few)
 
 
 def read_goldens(name="torch_slice_evalpath_seed0.md5"):
@@ -401,7 +484,7 @@ def phase_profile(search_argv, unprofiled_window_s):
         raise RuntimeError("the profiler saw no device time")
     k1_ms = sum(v for k, v in kernels.items() if "nw_fwd_packed" in k)
     wall_ms = window["wall"] * 1e3
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:14]
     res = dict(frontiers=PROFILE_FRONTIERS, device_ms=device_ms, k1_ms=k1_ms,
                wall_ms=wall_ms, unprofiled_wall_ms=unprofiled_window_s * 1e3,
                idle_share=1 - device_ms / wall_ms,
@@ -455,28 +538,28 @@ def phase_long_paths():
 
 
 def phase_main_shapes(largest, long_tensors):
-    """K1 at the largest search frontier's shape; K2 at the long-path
-    batch's shape (fw + rc rows stacked, as nw_best_scores stacks them)."""
+    """K1 at the largest search frontier's shape, on the search's own
+    prepared read operand; K2 at the long-path batch's shape."""
     import torch
 
     from gfalign_torch.engine.evaluate import encode_frontier
-    from gfalign_torch.ops.nw_path import rc_keys_device
-
-    def stacked(b_keys, b_len):
-        return (torch.cat([b_keys, rc_keys_device(b_keys, b_len)]),
-                torch.cat([b_len, b_len]))
 
     C, candidates, read_batch = largest
     a_keys, a_len = (torch.from_numpy(x).cuda() for x in encode_frontier(candidates))
-    k1 = compare("packed", a_keys, a_len, *stacked(*read_batch.device_keys()))
+    operand = read_batch.prepared().operand
+    b_keys, b_len = read_batch.device_keys()
+    k1 = compare("packed", a_keys, a_len, b_keys, b_len, operand=operand)
     k1["frontier_candidates"] = C
+    k1["block_widths"] = {w: operand.block_w.count(w) for w in sorted(set(operand.block_w))}
     log(f"phase 6 K1 at the largest frontier C={C} (padded {a_keys.shape[0]}), "
-        f"rows={k1['shape']['rows']}, n={k1['shape']['n']}, m={k1['shape']['m']}: "
-        f"exact; {k1['ms']:.3f} ms, plain {k1['plain_ms']:.3f} ms, "
-        f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
-    ak, al, bk, bl = long_tensors
-    k2 = compare("split", ak, al, *stacked(bk, bl), reps=3)
-    log(f"phase 6 K2 at the long-path batch: exact; {k2['ms']:.3f} ms, "
+        f"rows={k1['shape']['rows']}, n={k1['shape']['n']}, m={k1['shape']['m']}, "
+        f"blocks by strip width {k1['block_widths']}: exact; {k1['ms']:.3f} ms "
+        f"(thread-per-pair layout, recorded: {OLD_LAYOUT_MS['k1_main']} ms), "
+        f"plain {k1['plain_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms "
+        f"({k1['bound_by']})")
+    k2 = compare("split", *long_tensors, reps=3)
+    log(f"phase 6 K2 at the long-path batch: exact; {k2['ms']:.3f} ms "
+        f"(thread-per-pair layout, recorded: {OLD_LAYOUT_MS['k2_main']} ms), "
         f"plain {k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.4f} ms "
         f"({k2['bound_by']})")
     return k1, k2
@@ -819,7 +902,13 @@ def phase_seqalign_main_shapes(recs):
     return out
 
 
-def main() -> int:
+def dump_details(details, name):
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / name).write_text(json.dumps(details, indent=1) + "\n")
+
+
+def main(only_kernels: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -830,10 +919,17 @@ def main() -> int:
 
     t_start = time.time()
     smi, name = phase_card()
-    build_s = phase_build()
+    build_s, sass = phase_build()
     gen = torch.Generator().manual_seed(0)
     k1_bench = phase_k1_bench(gen)
     k2_check = phase_k2(gen)
+    if only_kernels:
+        dump_details(dict(card=smi, device=name, build_s=build_s, sass=sass,
+                          k1_bench=k1_bench, k2_check=k2_check),
+                     "chip_smoke_nw.json")
+        log(f"phases 1-4 passed in {time.time() - t_start:.1f} s (--nw: the "
+            f"other phases were not run, so no result line is printed)")
+        return 0
     from gfalign_torch import synth
 
     wl = synth.make_workload(seed=0)
@@ -862,14 +958,12 @@ def main() -> int:
                           ms=res["ms"], plain_ms=res["plain_ms"],
                           bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                           library_ms=None))
-    details = dict(card=smi, device=name, build_s=build_s, k1_bench=k1_bench,
+    details = dict(card=smi, device=name, build_s=build_s, sass=sass, k1_bench=k1_bench,
                    k2_check=k2_check, search=search, evalpath=evalpath,
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
                    seqalign_ragged=sa_ragged, align=align, seqalign_main=sa_main,
                    ops_per_cell=OPS_PER_CELL, seconds=time.time() - t_start)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1) + "\n")
+    dump_details(details, "chip_smoke.json")
     log(f"all phases passed in {details['seconds']:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -878,4 +972,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    if sys.argv[1:] not in ([], ["--nw"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--nw]")
+    raise SystemExit(main(only_kernels=sys.argv[1:] == ["--nw"]))

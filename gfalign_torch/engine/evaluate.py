@@ -10,7 +10,9 @@ step (parallel/score_step.local_step: scores, membership filter and tallies
 all on the device; only the (C, 3) tallies come back).  The reference
 re-scores sequentially per expansion; scores are deterministic per
 candidate, so batching preserves output parity.  Read paths are packed once
-into a ReadBatch whose keys stay resident on the device.
+into a ReadBatch that keeps them on the device as a prepared read operand
+(both orientations, sorted by length, transposed), so a frontier call
+uploads only its candidates.
 """
 
 from __future__ import annotations
@@ -21,11 +23,11 @@ from typing import List, Sequence, Union
 import numpy as np
 import torch
 
-from ..ops.nw_cuda import TILE_R
+from ..ops.nw_cuda import BLOCK_R
 from ..ops.nw_path import (ORIENT_CODE, Step, encode_path_batch,
                            nw_align_oracle, nw_pair_scores, pad_bucket,
                            pad_pow2, revcomp_path)
-from ..parallel.score_step import local_step
+from ..parallel.score_step import local_step_prepared, prepare_reads
 
 
 @dataclass
@@ -79,20 +81,31 @@ class ReadBatch:
         # is one kept `good` read for every candidate
         self.n_empty = int((lengths == 0).sum())
         self._device = None
+        self._prepared = None
 
     def device_keys(self):
-        """Device-resident padded (b_keys, b_len), uploaded once.  Pad
-        quantum: the kernel's read tile on CUDA, 8 on the CPU (the plain
-        version's work is proportional to the padded read count)."""
+        """Device-resident (b_keys, b_len), uploaded once, rows padded with
+        empty reads to a multiple of 8."""
         if self._device is None:
-            quantum = TILE_R if self.device.type == "cuda" else 8
-            padn = -self.R % quantum
+            padn = -self.R % 8
             b_keys = np.concatenate(
                 [self.b_keys, np.full((padn, self.m), -2, np.int32)])
             b_len = np.concatenate([self.lengths, np.zeros((padn,), np.int32)])
             self._device = (torch.from_numpy(b_keys).to(self.device),
                             torch.from_numpy(b_len).to(self.device))
         return self._device
+
+    def prepared(self):
+        """The reads as the frontier step wants them
+        (parallel/score_step.PreparedReads: the scorer's operand with both
+        orientations, length-sorted and transposed, and the membership
+        filter's ids in the same row order), prepared once.  Row blocks are
+        the kernels' on CUDA and 8 on the CPU, where the plain version's
+        work is proportional to the padded read count."""
+        if self._prepared is None:
+            block = BLOCK_R if self.device.type == "cuda" else 8
+            self._prepared = prepare_reads(*self.device_keys(), block_rows=block)
+        return self._prepared
 
 
 def _as_batch(read_paths, device) -> ReadBatch:
@@ -101,19 +114,29 @@ def _as_batch(read_paths, device) -> ReadBatch:
     return ReadBatch(read_paths, device)
 
 
-def encode_frontier(candidates: Sequence[Sequence[Step]]):
-    """(a_keys, a_len) of a frontier: keys padded with -1 to a power-of-two
-    width, and C padded with empty candidates to a geometric bucket so that
-    padded work stays within ~25% of the frontier."""
+def _frontier_buffer(candidates: Sequence[Sequence[Step]]):
+    """One int32 buffer holding a frontier's keys (C, n) and then its
+    lengths (C,), so that a single copy uploads both; returns (buffer, C,
+    n).  Keys are padded with -1 to a power-of-two width, and C with empty
+    candidates to a geometric bucket so that padded work stays within ~25%
+    of the frontier."""
     oc = ORIENT_CODE
-    keys_list = [[(s[0] << 2) | oc[s[1]] for s in c] for c in candidates]
-    a_keys = np.full((pad_bucket(len(keys_list)),
-                      pad_pow2(max(map(len, keys_list)))), -1, np.int32)
-    a_len = np.zeros((a_keys.shape[0],), np.int32)
-    for i, k in enumerate(keys_list):
-        a_keys[i, :len(k)] = k
-        a_len[i] = len(k)
-    return a_keys, a_len
+    lens = np.fromiter(map(len, candidates), np.int32, count=len(candidates))
+    C, n = pad_bucket(len(candidates)), pad_pow2(int(lens.max()))
+    buf = np.full((C * n + C,), -1, np.int32)
+    a_keys = buf[:C * n].reshape(C, n)
+    live = np.arange(n, dtype=np.int32)[None, :] < lens[:, None]
+    a_keys[:len(candidates)][live] = [(s[0] << 2) | oc[s[1]]
+                                      for c in candidates for s in c]
+    buf[C * n:] = 0
+    buf[C * n:C * n + len(candidates)] = lens
+    return buf, C, n
+
+
+def encode_frontier(candidates: Sequence[Sequence[Step]]):
+    """(a_keys (C, n), a_len (C,)) of a frontier: views of `_frontier_buffer`."""
+    buf, C, n = _frontier_buffer(candidates)
+    return buf[:C * n].reshape(C, n), buf[C * n:]
 
 
 def evaluate_candidates(candidates: Sequence[Sequence[Step]],
@@ -126,12 +149,11 @@ def evaluate_candidates(candidates: Sequence[Sequence[Step]],
     batch = _as_batch(read_paths, device)
     if batch.R == 0 or not candidates:
         return results
-    a_keys, a_len = encode_frontier(candidates)
-    b_keys, b_len = batch.device_keys()
-    dev = b_keys.device
-    tallies = local_step(torch.from_numpy(a_keys).to(dev),
-                         torch.from_numpy(a_len).to(dev), b_keys, b_len,
-                         filter_alignments).cpu().numpy()
+    buf, C, n = _frontier_buffer(candidates)
+    reads = batch.prepared()
+    on_device = torch.from_numpy(buf).to(reads.operand.device)   # the one upload
+    tallies = local_step_prepared(on_device[:C * n].view(C, n), on_device[C * n:],
+                                  reads, filter_alignments).cpu().numpy()
     for ci in range(len(candidates)):
         results[ci].bad = int(tallies[ci, 0])
         results[ci].good = int(tallies[ci, 1]) + batch.n_empty

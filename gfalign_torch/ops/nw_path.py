@@ -27,10 +27,13 @@ Two implementations of the score:
     CUDA tensor to the hand-written kernels of ops/nw_cuda.py and a CPU
     tensor to the plain PyTorch version (`nw_pair_scores_ref`,
     `nw_best_scores_ref`), which stays callable by name on any device so
-    the kernels can be held against it on the card.  The plain version is
-    the row formulation: each dp row is one int32 `cummax` over
-    (candidate + j), batched over candidates and reads, and the traceback
-    is replaced by forward propagation of the walk's exit column.
+    the kernels can be held against it on the card.  `scores_prepared`
+    does the same against a read operand prepared once (nw_cuda.ReadOperand:
+    both orientations, length-sorted, transposed), which is how the search
+    scores every frontier.  The plain version is the row formulation: each
+    dp row is one int32 `cummax` over (candidate + j), batched over
+    candidates and reads, and the traceback is replaced by forward
+    propagation of the walk's exit column.
 """
 
 from __future__ import annotations
@@ -261,23 +264,47 @@ def nw_pair_scores(a_keys, a_len, b_keys, b_len):
     return nw_pair_scores_ref(a_keys, a_len, b_keys, b_len)
 
 
-def _best_of_both(pair_scores, a_keys, a_len, b_keys, b_len):
-    # fw and rc read batches are stacked into one 2R-row scoring pass
+def nw_best_scores_ref(a_keys, a_len, b_keys, b_len):
+    """max(forward, reverse-complement) scores, (C, R) int32, through the
+    plain version on any device: the fw and rc read batches are stacked
+    into one 2R-row scoring pass."""
     both = torch.cat([b_keys, rc_keys_device(b_keys, b_len)], dim=0)
     both_len = torch.cat([b_len, b_len], dim=0)
-    scores = pair_scores(a_keys, a_len, both, both_len)
+    scores = nw_pair_scores_ref(a_keys, a_len, both, both_len)
     R = b_keys.shape[0]
     return torch.maximum(scores[:, :R], scores[:, R:])
 
 
 def nw_best_scores(a_keys, a_len, b_keys, b_len):
-    """max(forward, reverse-complement) scores, (C, R) int32."""
-    return _best_of_both(nw_pair_scores, a_keys, a_len, b_keys, b_len)
+    """max(forward, reverse-complement) scores, (C, R) int32: the CUDA
+    kernels for CUDA tensors (one pass over a read operand prepared for
+    this call; they launch or raise), the plain version for CPU tensors."""
+    if b_keys.is_cuda:
+        from . import nw_cuda
+
+        return nw_cuda.nw_best_scores_cuda(a_keys, a_len, b_keys, b_len)
+    return nw_best_scores_ref(a_keys, a_len, b_keys, b_len)
 
 
-def nw_best_scores_ref(a_keys, a_len, b_keys, b_len):
-    """`nw_best_scores` through the plain version on any device."""
-    return _best_of_both(nw_pair_scores_ref, a_keys, a_len, b_keys, b_len)
+def scores_prepared_ref(a_keys, a_len, operand):
+    """Plain-version scores against a prepared read operand
+    (nw_cuda.ReadOperand), (C, Rp) int32 in the operand's row order, on
+    the operand's device: forward scores, or max(forward,
+    reverse-complement) when the operand holds both planes."""
+    planes = [nw_pair_scores_ref(a_keys, a_len, operand.plane(o), operand.b_len)
+              for o in range(operand.ns)]
+    return planes[0] if len(planes) == 1 else torch.maximum(*planes)
+
+
+def scores_prepared(a_keys, a_len, operand):
+    """Scores against a prepared read operand, (C, Rp) int32 in the
+    operand's row order: the CUDA kernels for a CUDA operand (they launch
+    or raise), the plain version for a CPU one."""
+    if operand.device.type == "cuda":
+        from . import nw_cuda
+
+        return nw_cuda.scores_prepared(a_keys, a_len, operand)
+    return scores_prepared_ref(a_keys, a_len, operand)
 
 
 def pad_pow2(x: int, floor: int = 8) -> int:

@@ -19,7 +19,7 @@ from gfalign_torch import synth
 from gfalign_torch.cli.main import main
 from gfalign_torch.engine.evaluate import evaluate_candidates
 from gfalign_torch.ops import nw_cuda, seqalign, seqalign_cuda
-from gfalign_torch.ops.nw_path import Step, nw_pair_scores_ref
+from gfalign_torch.ops.nw_path import Step, nw_best_scores_ref, nw_pair_scores_ref
 from tests.test_torch_goldens import port_search_inputs
 
 pytestmark = pytest.mark.cuda
@@ -48,19 +48,66 @@ def random_batch(seed, C, n, R, m, nodes):
     return [torch.from_numpy(x) for x in (a_keys, a_len, b_keys, b_len)]
 
 
-@pytest.mark.parametrize("shape", [(8, 24, 256, 16, 10), (5, 12, 300, 5, 3),
-                                   (3, 40, 130, 70, 6),
-                                   (2, 6144, 256, 2048, 50)],
-                         ids=["K1", "K1-narrow", "K1-strips", "K2"])
+# (C, n, R, m, distinct nodes, longest read or None for m)
+KERNEL_SHAPES = {
+    "K1": (8, 24, 256, 16, 10, None),
+    "K1-narrow": (5, 12, 300, 5, 3, None),
+    "K1-search-like": (37, 8, 3000, 16, 6, 15),       # every bucket, ragged chunk
+    "K1-one-candidate": (1, 8, 129, 16, 4, 15),
+    "K1-m33": (9, 24, 700, 33, 5, None),              # a strip and one column
+    "K1-strips": (3, 40, 130, 70, 6, None),
+    "K1-m64": (20, 64, 1000, 64, 6, None),
+    "K1-under-8192": (2, 8176, 5, 15, 30, None),      # pad8(n) + m = 8191
+    "K2-over-8192": (2, 8176, 5, 16, 30, None),       # pad8(n) + m = 8192
+    "K2": (2, 6144, 256, 2048, 50, None),
+    "K2-1-pair": (1, 8190, 1, 64, 20, None),
+    "K2-3-pairs": (3, 8000, 1, 600, 20, None),
+    "K2-200-pairs": (2, 8190, 100, 8, 20, None),
+    "K2-long-candidate": (1, 60000, 2, 40, 9, None),  # 234 KB of keys: streamed
+    "K2-wide-read": (1, 300, 2, 9000, 30, None),      # wider than one block
+}
+
+
+def shaped_batch(name):
+    C, n, R, m, nodes, longest = KERNEL_SHAPES[name]
+    ak, al, bk, bl = random_batch(5, C, n, R, m, nodes)
+    if name.startswith("K2-") and R <= 2:     # few pairs: make them full length
+        al[:], bl[:] = n, m
+        ak = torch.from_numpy(np.random.default_rng(1).integers(0, nodes * 4, (C, n))
+                              .astype(np.int32))
+        bk = torch.from_numpy(np.random.default_rng(2).integers(0, nodes * 4, (R, m))
+                              .astype(np.int32))
+    elif longest is not None:
+        bl = torch.minimum(bl, torch.tensor(longest, dtype=torch.int32))
+        bk = torch.where(torch.arange(m)[None, :] < bl[:, None], bk, -2).int()
+    return ak, al, bk, bl, "packed" if nw_cuda.uses_packed(n, m) else "split"
+
+
+@pytest.mark.parametrize("shape", list(KERNEL_SHAPES))
 def test_kernel_matches_plain(shape, cuda):
-    ak, al, bk, bl = (x.to(cuda) for x in random_batch(5, *shape))
-    kind = "packed" if -(-shape[1] // 8) * 8 + shape[3] < nw_cuda.PACKED_MAX_DIAG \
-        else "split"
+    ak, al, bk, bl, kind = shaped_batch(shape)
+    assert kind == ("packed" if shape.startswith("K1") else "split")
+    ak, al, bk, bl = (x.to(cuda) for x in (ak, al, bk, bl))
     before = nw_cuda.LAUNCHES[kind]
     got = nw_cuda.nw_pair_scores_cuda(ak, al, bk, bl)
     torch.cuda.synchronize()
     assert nw_cuda.LAUNCHES[kind] > before
     assert torch.equal(got, nw_pair_scores_ref(ak, al, bk, bl))
+    best = nw_cuda.nw_best_scores_cuda(ak, al, bk, bl)     # both orientations
+    assert torch.equal(best, nw_best_scores_ref(ak, al, bk, bl))
+
+
+def test_prepared_operand_is_reused(cuda):
+    ak, al, bk, bl, _ = shaped_batch("K1-search-like")
+    ak, al, bk, bl = (x.to(cuda) for x in (ak, al, bk, bl))
+    operand = nw_cuda.ReadOperand(bk, bl)
+    assert len(set(operand.block_w)) > 4                   # several instances
+    want = nw_best_scores_ref(ak, al, bk, bl)
+    for C in (37, 5, 1):
+        got = nw_cuda.scores_prepared(ak[:C].contiguous(), al[:C].contiguous(), operand)
+        assert got.shape == (C, operand.Rp)
+        assert torch.equal(operand.to_caller_order(got), want[:C])
+        assert int(got[:, operand.R:].abs().sum()) == 0    # pad rows score 0
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -71,6 +118,15 @@ def test_kernel_rejects_bad_inputs(cuda):
         nw_cuda.nw_pair_scores_cuda(ak, al, bk, bl.cpu())
     with pytest.raises(ValueError):
         nw_cuda.nw_pair_scores_cuda(ak.t(), al, bk, bl)
+    with pytest.raises(ValueError):
+        nw_cuda.nw_pair_scores_cuda(ak, al, bk.t(), bl)
+    operand = nw_cuda.ReadOperand(bk, bl)
+    with pytest.raises(ValueError):
+        nw_cuda.scores_prepared(ak, al[:2], operand)
+    with pytest.raises(ValueError, match="128-row"):
+        nw_cuda.scores_prepared(ak, al, nw_cuda.ReadOperand(bk, bl, block_rows=8))
+    with pytest.raises(ValueError, match="CUDA"):
+        nw_cuda.scores_prepared(ak.cpu(), al.cpu(), nw_cuda.ReadOperand(bk.cpu(), bl.cpu()))
 
 
 @pytest.mark.parametrize("filt", [True, False])

@@ -100,3 +100,75 @@ def test_device_keys_pad_to_cpu_quantum():
     assert b_keys.shape == (16, batch.m) and b_len.shape == (16,)
     assert int(b_len[11:].abs().sum()) == 0
     assert batch.device_keys()[0] is b_keys  # uploaded once
+
+
+@pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
+@pytest.mark.parametrize("seed", range(4))
+def test_evaluate_candidates_shuffled_reads_match_jax(seed, filt):
+    """The port scores in the read operand's length-sorted order; the
+    tallies are sums over reads, so a ReadBatch whose reads come in any
+    order gives the JAX package's tallies."""
+    cands, reads = random_frontier(200 + seed)
+    want = _tallies(JE.evaluate_candidates(cands, reads, filt))
+    shuffled = list(reads)
+    random.Random(seed).shuffle(shuffled)
+    batch = TE.ReadBatch(shuffled, device="cpu")
+    assert _tallies(TE.evaluate_candidates(cands, batch, filt)) == want
+    operand, side = batch.prepared()
+    assert batch.prepared().operand is operand         # prepared once
+    assert operand.ns == 2 and operand.R == batch.device_keys()[0].shape[0]
+    assert (np.diff(operand.b_len.numpy()) <= 0).all()
+    np.testing.assert_array_equal(side.b_ids.numpy(),
+                                  np.where(operand.keys.numpy() >= 0,
+                                           operand.keys.numpy() >> 2, -2))
+    np.testing.assert_array_equal(side.valid.numpy()[0], operand.keys.numpy() >= 0)
+    np.testing.assert_array_equal(side.real.numpy()[0], operand.b_len.numpy() > 0)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_local_step_prepared_matches_local_step(seed):
+    from gfalign_torch.parallel.score_step import local_step_prepared, prepare_reads
+
+    cands, reads = random_frontier(300 + seed)
+    jb = JE.ReadBatch(reads)
+    tb = TE.ReadBatch.from_arrays(jb.b_keys, jb.lengths, jb.ids, device="cpu")
+    a_keys, a_len = (torch.from_numpy(x) for x in TE.encode_frontier(cands))
+    b_keys, b_len = tb.device_keys()
+    reads = prepare_reads(b_keys, b_len)                # the kernels' 128-row blocks
+    assert reads.operand.Rp % 128 == 0
+    for filt in (True, False):
+        want = local_step(a_keys, a_len, b_keys, b_len, filt)
+        assert torch.equal(local_step_prepared(a_keys, a_len, reads, filt), want)
+        via_bridge = local_step_prepared(a_keys, a_len, tb.prepared(), filt)
+        assert torch.equal(via_bridge, want)
+
+
+@pytest.mark.parametrize("chunk_elems", [1 << 26, 64], ids=["one-chunk", "chunked"])
+@pytest.mark.parametrize("seed", range(3))
+def test_offending_steps_match_brute_force(seed, chunk_elems, monkeypatch):
+    """The membership filter against a set-based count: full-width and empty
+    candidates, candidate nodes no read visits, read nodes on no candidate,
+    empty reads, one chunk of candidates and several."""
+    from gfalign_torch.parallel import score_step
+
+    monkeypatch.setattr(score_step, "_MEMBER_CHUNK_ELEMS", chunk_elems)
+    rng = np.random.default_rng(seed)
+    C, n, R, m = 9, 4, 21, 6
+    a_ids = rng.integers(0, 12, (C, n))
+    a_len = rng.integers(0, n + 1, C)
+    a_len[0], a_len[1] = n, 0
+    a_keys = np.where(np.arange(n)[None, :] < a_len[:, None],
+                      a_ids * 4 + rng.integers(0, 2, (C, n)), -1).astype(np.int32)
+    b_ids = rng.integers(3, 20, (R, m))
+    b_len = rng.integers(0, m + 1, R).astype(np.int32)
+    b_len[0], b_len[1] = m, 0
+    b_keys = np.where(np.arange(m)[None, :] < b_len[:, None],
+                      b_ids * 4 + rng.integers(0, 2, (R, m)), -2).astype(np.int32)
+    want = np.array([[sum(int(b_ids[r, j]) not in set(a_ids[c, :a_len[c]].tolist())
+                          for j in range(b_len[r])) for r in range(R)] for c in range(C)])
+    side = score_step.read_side(torch.from_numpy(b_keys), torch.from_numpy(b_len))
+    got = score_step._offending_steps(torch.from_numpy(a_keys), side)
+    np.testing.assert_array_equal(got.numpy(), want)
+    empty = score_step.read_side(torch.full((3, m), -2, dtype=torch.int32),
+                                 torch.zeros(3, dtype=torch.int32))
+    assert int(score_step._offending_steps(torch.from_numpy(a_keys), empty).abs().sum()) == 0
