@@ -8,8 +8,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build csrc/nw_path.cu (kernels K1 and K2) and csrc/seqalign.cu (K3,
      K4, K5) with nvcc, both compilers started together, timed; then the
-     machine instructions per DP cell of every K1 and K2 row loop, counted
-     in cuobjdump's disassembly of the built library;
+     machine instructions per DP cell of every K1, K2, K3 and K4 row loop,
+     counted in cuobjdump's disassembly of the built libraries;
   3. K1 against its plain PyTorch version on the card, bit-exact, at the
      shapes of bench.py (C=128, R=16,384 fw+rc, N=M=64) and on ragged
      batches with empty rows (search-like short reads in every length
@@ -33,7 +33,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
      unprofiled wall from phase 5;
   8. K3, K4 and K5 against their plain PyTorch versions, bit-exact on every
      output, on ragged random batches (PAD-masked read stretches, off-band
-     deltas, N codes, all-PAD rows, multi-step paths);
+     deltas, N codes, all-PAD rows, multi-step paths), then at phase 10's
+     shapes synthesised without an align run (bench_seqalign), timed with
+     the first design's recorded times beside;
   9. `align` end to end through gfalign_torch.cli.main.main on CUDA, three
      runs, each GAF equal to its golden in tests/data/ (md5 and record
      count) with the launch counters zeroed before and read after: the
@@ -44,7 +46,8 @@ Phases (each prints a line; any failure raises and exits non-zero):
      engine on a 34-segment graph (must launch K5);
  10. K3, K4 and K5 timed against their plain versions at those runs' own
      shapes: K3 at the seeded run's largest chunk at widths 128 and 512, K4
-     at the largest bucket launched, K5 at the exhaustive run's first call.
+     at the largest bucket launched, K5 at the exhaustive run's first call;
+     K3 and K4 with the first design's recorded times beside.
 
 A kernel's bound is its useful DP cells times its integer-ALU operations
 per cell (OPS_PER_CELL) over the card's int32 ALU rate, or its bytes over
@@ -52,7 +55,10 @@ HBM bandwidth if larger.  For K3-K5 the cells are those of the rows up to
 each read's last non-PAD char (the kernels skip the rest).
 
 `python3 chip_smoke.py --nw` stops after phase 4 (build, K1 and K2 against
-their plain versions: under a minute) and prints no result line.
+their plain versions: under a minute) and prints no result line;
+`python3 chip_smoke.py --sa` runs phases 1, 2 and 8 only (build, K3-K5
+against their plain versions and at the synthesised phase-10 shapes: about
+a minute), no result line either.
 
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Details also go to chiprun_out/chip_smoke.json.
@@ -93,24 +99,34 @@ INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # IMAD on the FMA pipe.  Issue (128 instructions per SM and clock) binds
 # later: 8/128 and 11/128 instructions per cell against 5/64 and 8/64.
 #
-# From the row loops of csrc/seqalign.cu, by the same rule.  K3: the byte
-# extract of the path char, its PAD compare, the match compare, the two
-# selects of the substitution, two maxes, the in-path compare, its select
-# and its mask bit, the scan's max; then the carry's max, the mask test and
-# select, and the key's max = 16.  K4/K5: the PAD compare, the match
+# From the row loops of csrc/seqalign.cu, by the same rule.  K3 (the group
+# kernel, which serves the seeded run's widths 128 and 512): the byte
+# extract of the path char, the match compare, the select of the
+# substitution, the add-then-max with 0 of the cell, the chain's
+# add-then-max, the carry's add-then-max and the key's max = 7.  K4: the
+# match compare, the select, the cell's add-then-max with 0, the chain's
+# add-then-max and the key's max = 5.  K5: the PAD compare, the match
 # compare, the two selects, two maxes, the scan's max, the carry's max and
-# the key's max = 9.  Left out: the adds (fused or IMAD), the key's multiply
-# (IMAD), and the per-row shuffles and barriers of the scan, which a thread
-# pays once per row for its 4 or 16 cells.
-OPS_PER_CELL = {"packed": 5, "split": 8, "banded": 16, "pairs": 9, "cross": 9}
+# the key's max = 9.  Left out: the adds (fused or IMAD), the key's
+# multiply (IMAD), the shuffles of K3's scan and K4's hand-over, which a
+# thread pays once per row for its 16 or 8 cells, and the PAD test, which
+# only rows that can see a PAD inside the path pay.  The first designs of
+# K3 and K4 (one block a pair) spent 16 and 9, and the bounds recorded
+# beside OLD_LAYOUT_MS's times were stated with those counts; the
+# block-per-pair K3, which still serves bands over 512 lanes and those
+# that are not multiples of 16, spends 16.
+OPS_PER_CELL = {"packed": 5, "split": 8, "banded": 7, "pairs": 5, "cross": 9}
 # K1 and K2 as first ported (one thread per pair, a block per candidate x 128
 # reads), timed by this script at the same shapes on an NVIDIA H100 80GB HBM3
 # at 700.00 W (PERF.md section 6 keeps the record), then with the host's
-# launch overhead inside the events, which adds some 0.05 ms to the shortest:
-# printed beside the times of the present design, never compared by the
-# script.  gfalign_torch/bench_nw.py times both layouts in one way.
+# launch overhead inside the events, which adds some 0.05 ms to the shortest;
+# K3 and K4 as first ported (one block a pair), timed device-only by this
+# script's phase 10 before their redesign, same card and limit: printed
+# beside the times of the present design, never compared by the script.
+# gfalign_torch/bench_nw.py and bench_seqalign.py time old and new in one way.
 OLD_LAYOUT_MS = {"k1_bench": 7.331, "k1_main": 0.313, "k2_check": 13.78,
-                 "k2_main": 176.2}
+                 "k2_main": 176.2, "k3_128": 7.027, "k3_512": 14.883,
+                 "k4": 2.969}
 ALIGN_MAX_SECONDS = 400  # the seeded align phase's share of the script's limit
 PROFILE_FRONTIERS = 300  # frontier calls of the search under the profiler
 KERNELS = {
@@ -120,7 +136,7 @@ KERNELS = {
                   replaces="gfalign_tpu/ops/nw_pallas.py:59"),
     "banded": dict(name="sa_banded_fwd (K3)",
                    replaces="gfalign_tpu/ops/seqalign_pallas.py:257"),
-    "pairs": dict(name="sa_local_fwd pairwise (K4)",
+    "pairs": dict(name="sa_pairs_fwd (K4)",
                   replaces="gfalign_tpu/ops/seqalign_pallas.py:57 via :445"),
     "cross": dict(name="sa_local_fwd cross product (K5)",
                   replaces="gfalign_tpu/ops/seqalign_pallas.py:57 via :176"),
@@ -257,38 +273,55 @@ def phase_build():
 
 
 def sass_per_cell(cuda_build):
-    """Machine instructions per DP cell of every K1 and K2 row loop, read off
-    the built library.  Both kernels spend two max-type instructions on a
-    cell (K1 two add-then-max; K2 a max and an add-then-max), so an
-    innermost loop's count of them gives its cells.  'alu' leaves out loads,
-    stores, branches, barriers and shuffles."""
+    """Machine instructions per DP cell of every K1, K2, K3 and K4 row loop,
+    read off the built libraries.  K1 and K2 spend two max-type
+    instructions on a cell (K1 two add-then-max; K2 a max and an
+    add-then-max), so an innermost loop's count of them gives its cells.
+    A K3 group kernel's row is 2 + log2(G) shuffles over L cells a thread,
+    and a K4 wavefront step one shuffle over K cells (L, G and K from the
+    kernel's template arguments), so there the loop's shuffles give its
+    cells.  'alu' leaves out loads, stores, branches, barriers and
+    shuffles."""
     not_alu = ("LD", "ST", "BRA", "BAR", "SHFL", "BSSY", "BSYNC", "NOP", "WARPSYNC",
                "EXIT", "CALL", "RET", "ATOM", "RED")
     out = []
-    try:
-        loops = cuda_build.sass_inner_loops("nw_path")
-    except (RuntimeError, OSError, subprocess.CalledProcessError) as exc:
-        log(f"  sass: not measured ({exc})")
-        return out
-    for loop in loops:
-        ops = loop["opcodes"]
-        if "nw_fwd_" not in loop["function"]:
+    for stem in ("nw_path", "seqalign"):
+        try:
+            loops = cuda_build.sass_inner_loops(stem)
+        except (RuntimeError, OSError, subprocess.CalledProcessError) as exc:
+            log(f"  sass {stem}: not measured ({exc})")
             continue
-        cells = sum(v for k, v in ops.items() if "MNMX" in k) // 2
-        if cells < 2:
-            continue
-        alu = sum(v for k, v in ops.items() if not k.startswith(not_alu))
-        kernel = re.search(r"nw_fwd_\w+?(?=I|ILi|Pv|PK)", loop["function"])
-        row = dict(kernel=kernel.group(0) if kernel else loop["function"],
-                   cells=cells, instructions=loop["instructions"], alu=alu,
-                   per_cell=loop["instructions"] / cells, alu_per_cell=alu / cells,
-                   opcodes=ops)
-        out.append(row)
-        log(f"  sass {row['kernel']}: row loop of {cells:g} cells, "
-            f"{row['instructions']} instructions ({row['per_cell']:.2f} a cell), "
-            f"{alu} ALU ({row['alu_per_cell']:.2f} a cell)")
+        for loop in loops:
+            ops, fn = loop["opcodes"], loop["function"]
+            shfl = ops.get("SHFL", 0)
+            group = re.search(r"banded_group_kernelILi(\d+)ELi(\d+)E", fn)
+            pairs = re.search(r"pairs_fwd_kernelILi(\d+)E", fn)
+            if "nw_fwd_" in fn:
+                cells = sum(v for k, v in ops.items() if "MNMX" in k) // 2
+                kernel = re.search(r"nw_fwd_\w+?(?=I|ILi|Pv|PK)", fn)
+                kernel = kernel.group(0) if kernel else fn
+            elif group:
+                L, G = int(group.group(1)), int(group.group(2))
+                cells = shfl // (2 + G.bit_length() - 1) * L
+                kernel = f"banded_group<L={L},G={G}>"
+            elif pairs:
+                cells = shfl * int(pairs.group(1))
+                kernel = f"pairs_fwd<K={pairs.group(1)}>"
+            else:
+                continue
+            if cells < 2:
+                continue
+            kernel += "<int64 keys>" if "ExEE" in fn or "xEEv" in fn else ""
+            alu = sum(v for k, v in ops.items() if not k.startswith(not_alu))
+            row = dict(kernel=kernel, cells=cells, instructions=loop["instructions"],
+                       alu=alu, per_cell=loop["instructions"] / cells,
+                       alu_per_cell=alu / cells, opcodes=ops)
+            out.append(row)
+            log(f"  sass {row['kernel']}: row loop of {cells:g} cells, "
+                f"{row['instructions']} instructions ({row['per_cell']:.2f} a cell), "
+                f"{alu} ALU ({row['alu_per_cell']:.2f} a cell)")
     if not out:
-        log("  sass: no K1/K2 row loop recognised in the disassembly")
+        log("  sass: no row loop recognised in the disassembly")
     return out
 
 
@@ -710,7 +743,7 @@ def phase_seqalign_ragged(gen):
     pidx = torch.randint(0, n_paths, (n_pairs,), generator=gen).int().cuda()
     deltas = torch.randint(-40, lr, (n_pairs,), generator=gen).int().cuda()
     out = {}
-    for width in (16, 128, 512, 2048):
+    for width in (8, 16, 128, 512, 520, 1024, 2048):
         res = compare_seqalign("banded", pools + (ridx, pidx, deltas), width=width)
         out[f"banded_{width}"] = res
         log(f"phase 8 K3 ragged N={n_pairs} lr={lr} width={width} paths of 1-6 "
@@ -721,12 +754,45 @@ def phase_seqalign_ragged(gen):
         f"plain {res['plain_ms']:.1f} ms")
     res = compare_seqalign("pairs", (ragged_codes(gen, 3, 200), ragged_codes(gen, 3, 9000)))
     out["pairs_strips"] = res
-    log(f"phase 8 K4 ragged N=3 lr=200 lp=9000 (two column strips): exact; "
+    log(f"phase 8 K4 ragged N=3 lr=200 lp=9000 (a path over several blocks): exact; "
         f"{res['ms']:.3f} ms, plain {res['plain_ms']:.1f} ms")
     res = compare_seqalign("cross", (ragged_codes(gen, 40, 200), ragged_codes(gen, 24, 300)))
     out["cross"] = res
     log(f"phase 8 K5 ragged R=40 P=24 lr=200 lp=300: exact; {res['ms']:.3f} ms, "
         f"plain {res['plain_ms']:.1f} ms")
+    return out
+
+
+def phase_seqalign_synthetic():
+    """K3, K4 and K5 at phase 10's shapes, synthesised without an align run
+    (gfalign_torch/bench_seqalign.py): bit-exact on the first pairs, timed,
+    with the first design's recorded times beside."""
+    from gfalign_torch.bench_seqalign import K3_PAIRS, synthetic_shapes
+
+    t0 = time.time()
+    shapes = synthetic_shapes()
+    log(f"phase 8 synthetic phase-10 shapes made in {time.time() - t0:.1f} s")
+    out = {}
+    k3 = tuple(x.cuda() for x in shapes["banded"])
+    for width, n in K3_PAIRS.items():
+        args = k3[:5] + tuple(x[:n].contiguous() for x in k3[5:])
+        res = compare_seqalign("banded", args, width=width, plain_cut=48)
+        out[f"banded_{width}"] = res
+        log(f"phase 8 K3 synthetic width {width}: {res['shape']}; exact on the "
+            f"first {res['plain_pairs']} pairs; {res['ms']:.3f} ms (one block a "
+            f"pair, recorded: {OLD_LAYOUT_MS[f'k3_{width}']} ms), bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+    res = compare_seqalign("pairs", tuple(x.cuda() for x in shapes["pairs"]))
+    out["pairs"] = res
+    log(f"phase 8 K4 synthetic: {res['shape']}; exact; {res['ms']:.3f} ms (one "
+        f"block a pair, recorded: {OLD_LAYOUT_MS['k4']} ms), bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+    res = compare_seqalign("cross", tuple(x.cuda() for x in shapes["cross"]),
+                           plain_cut=64)
+    out["cross"] = res
+    log(f"phase 8 K5 synthetic: {res['shape']}; exact on the first "
+        f"{res['plain_pairs']} reads; {res['ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
     return out
 
 
@@ -885,13 +951,15 @@ def phase_seqalign_main_shapes(recs):
         out[f"banded_{width}"] = res
         log(f"phase 10 K3 at the seeded run's largest chunk, width {width}: "
             f"{res['shape']}; exact on the first {res['plain_pairs']} pairs; "
-            f"{res['ms']:.3f} ms, plain {res['plain_ms']:.1f} ms (timed on "
+            f"{res['ms']:.3f} ms (one block a pair, recorded: "
+            f"{OLD_LAYOUT_MS[f'k3_{width}']} ms), plain {res['plain_ms']:.1f} ms (timed on "
             f"{res['plain_pairs']} pairs, scaled), bound {res['bound_ms']:.4f} ms "
             f"({res['bound_by']})")
     res = compare_seqalign("pairs", largest("pairs"))
     out["pairs"] = res
     log(f"phase 10 K4 at the largest bucket launched: {res['shape']}; exact; "
-        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.1f} ms, bound "
+        f"{res['ms']:.3f} ms (one block a pair, recorded: {OLD_LAYOUT_MS['k4']} "
+        f"ms), plain {res['plain_ms']:.1f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
     res = compare_seqalign("cross", largest("cross"), plain_cut=64)
     out["cross"] = res
@@ -908,7 +976,7 @@ def dump_details(details, name):
     (out_dir / name).write_text(json.dumps(details, indent=1) + "\n")
 
 
-def main(only_kernels: bool = False) -> int:
+def main(only: str = "") -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -921,9 +989,17 @@ def main(only_kernels: bool = False) -> int:
     smi, name = phase_card()
     build_s, sass = phase_build()
     gen = torch.Generator().manual_seed(0)
+    if only == "sa":
+        dump_details(dict(card=smi, device=name, build_s=build_s, sass=sass,
+                          seqalign_ragged=phase_seqalign_ragged(gen),
+                          seqalign_synthetic=phase_seqalign_synthetic()),
+                     "chip_smoke_sa.json")
+        log(f"phases 1, 2 and 8 passed in {time.time() - t_start:.1f} s (--sa: "
+            f"the other phases were not run, so no result line is printed)")
+        return 0
     k1_bench = phase_k1_bench(gen)
     k2_check = phase_k2(gen)
-    if only_kernels:
+    if only == "nw":
         dump_details(dict(card=smi, device=name, build_s=build_s, sass=sass,
                           k1_bench=k1_bench, k2_check=k2_check),
                      "chip_smoke_nw.json")
@@ -939,6 +1015,7 @@ def main(only_kernels: bool = False) -> int:
         k1, k2 = phase_main_shapes(largest, long_tensors)
         profile = phase_profile(search_argv, search["window_s"])
         sa_ragged = phase_seqalign_ragged(gen)
+        sa_synthetic = phase_seqalign_synthetic()
         align, recs = phase_align(workdir, wl)
         sa_main = phase_seqalign_main_shapes(recs)
 
@@ -961,7 +1038,8 @@ def main(only_kernels: bool = False) -> int:
     details = dict(card=smi, device=name, build_s=build_s, sass=sass, k1_bench=k1_bench,
                    k2_check=k2_check, search=search, evalpath=evalpath,
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
-                   seqalign_ragged=sa_ragged, align=align, seqalign_main=sa_main,
+                   seqalign_ragged=sa_ragged, seqalign_synthetic=sa_synthetic,
+                   align=align, seqalign_main=sa_main,
                    ops_per_cell=OPS_PER_CELL, seconds=time.time() - t_start)
     dump_details(details, "chip_smoke.json")
     log(f"all phases passed in {details['seconds']:.1f} s")
@@ -972,6 +1050,6 @@ def main(only_kernels: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--nw"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--nw]")
-    raise SystemExit(main(only_kernels=sys.argv[1:] == ["--nw"]))
+    if sys.argv[1:] not in ([], ["--nw"], ["--sa"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--nw | --sa]")
+    raise SystemExit(main(only=sys.argv[1][2:] if sys.argv[1:] else ""))

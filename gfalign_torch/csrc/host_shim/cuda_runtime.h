@@ -2,18 +2,23 @@
 // .cu sources of this directory (after ops/cuda_build.py has rewritten their
 // <<<...>>> launches and `extern __shared__` arrays) so that a kernel's
 // control flow, indexing, barriers and shuffles can be run on a CPU.  Blocks
-// run one after another; the threads of a block are OS threads,
-// __syncthreads() is a std::barrier over the block and __shfl_up_sync() an
-// exchange through a slot per lane between two barriers over the warp, so a
-// kernel must call them as CUDA requires: every thread of the block, or every
-// lane of the warp, the same number of times.  Nothing here says anything
-// about speed or about what nvcc accepts.
+// run one after another in launch order (so a block that waits for an
+// earlier one finds it finished); the threads of a block are OS threads,
+// __syncthreads() is a std::barrier over the block, static __shared__
+// arrays are statics (one block runs at a time), and the warp intrinsics
+// are an exchange through a slot per lane between two barriers over the
+// warp, so a kernel must call them as CUDA requires: every thread of the
+// block, or every lane of the warp, the same number of times.  Nothing here
+// says anything about speed or about what nvcc accepts.
 #pragma once
+#define GF_HOST_SHIM 1
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <climits>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -23,6 +28,7 @@
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
+#define __shared__ static
 
 struct dim3 {
   unsigned x, y, z;
@@ -35,6 +41,10 @@ enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename K>
 cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
 
 static dim3 blockIdx, gridDim, blockDim;
 struct HostThreadIdx { unsigned x; };
@@ -42,24 +52,95 @@ static thread_local HostThreadIdx threadIdx;
 static int32_t* host_shared;  // the running block's dynamic shared memory
 static std::barrier<>* host_block_barrier;
 static std::vector<std::unique_ptr<std::barrier<>>> host_warp_barriers;
-static int32_t host_shuffle_slots[32][32];
+static int64_t host_shuffle_slots[32][32];
 
 using std::max;
 using std::min;
 
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  host_warp_barriers[threadIdx.x >> 5]->arrive_and_wait();
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
-inline int32_t __shfl_up_sync(unsigned, int32_t v, int delta) {
+// v of lane `src` of this thread's warp (any type of at most 8 bytes)
+template <typename T>
+T host_exchange(T v, int src) {
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  host_shuffle_slots[w][l] = v;
+  int64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  host_shuffle_slots[w][l] = bits;
   host_warp_barriers[w]->arrive_and_wait();
-  const int32_t r = l >= delta ? host_shuffle_slots[w][l - delta] : v;
+  T r;
+  std::memcpy(&r, &host_shuffle_slots[w][src], sizeof(T));
   host_warp_barriers[w]->arrive_and_wait();
   return r;
 }
 
+template <typename T>
+T __shfl_up_sync(unsigned, T v, int delta, int width = 32) {
+  const int l = threadIdx.x & 31;
+  return host_exchange(v, l % width >= delta ? l - delta : l);
+}
+
+template <typename T>
+T __shfl_down_sync(unsigned, T v, int delta, int width = 32) {
+  const int l = threadIdx.x & 31;
+  return host_exchange(v, l % width + delta < width ? l + delta : l);
+}
+
+template <typename T>
+T __shfl_xor_sync(unsigned, T v, int mask, int width = 32) {
+  const int l = threadIdx.x & 31;
+  const int src = l ^ mask;
+  return host_exchange(v, src / width == l / width ? src : l);
+}
+
+inline int __any_sync(unsigned, int p) {
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  host_shuffle_slots[w][l] = p != 0;
+  host_warp_barriers[w]->arrive_and_wait();
+  int any = 0;
+  for (int k = 0; k < std::min(32, (int)blockDim.x - 32 * w); ++k)
+    any |= host_shuffle_slots[w][k] != 0;
+  host_warp_barriers[w]->arrive_and_wait();
+  return any;
+}
+
+template <typename T>
+T atomicAdd(T* p, T v) { return std::atomic_ref<T>(*p).fetch_add(v); }
+
+// the kernels' release store and acquire load (inline PTX on the card)
+inline void store_release(int32_t* p, int32_t v) {
+  std::atomic_ref<int32_t>(*p).store(v, std::memory_order_release);
+}
+inline int32_t load_acquire(const int32_t* p) {
+  return std::atomic_ref<int32_t>(*const_cast<int32_t*>(p))
+      .load(std::memory_order_acquire);
+}
+
+template <typename T>
+T atomicMax(T* p, T v) {
+  std::atomic_ref<T> a(*p);
+  T old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+
+template <typename T>
+T __ldcg(const T* p) { return *p; }
+
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned shift) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (shift & 31));
+}
+
 inline int32_t __viaddmax_s32(int32_t a, int32_t b, int32_t c) {
   return std::max(a + b, c);
+}
+
+inline int32_t __viaddmax_s32_relu(int32_t a, int32_t b, int32_t c) {
+  return std::max(std::max(a + b, c), 0);
 }
 
 // kernel<<<grid, threads, shared_bytes, stream>>>(args) becomes

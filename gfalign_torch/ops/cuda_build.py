@@ -10,10 +10,11 @@ library with cuobjdump and counts the instructions of every innermost loop,
 which is how the instructions a DP cell costs are read off the machine code.
 
 `build_host(stem)` builds a source for the CPU with a C++20 host compiler
-and csrc/host_shim/cuda_runtime.h (blocks one after another, a block's
-threads as OS threads; the shim knows the intrinsics of nw_path.cu, not yet
-those of seqalign.cu): the library has the same C interface, so
-the launchers of ops/nw_cuda.py can drive it with CPU tensors.  It exists
+and csrc/host_shim/cuda_runtime.h (blocks one after another in launch
+order, a block's threads as OS threads; the shim knows the intrinsics of
+nw_path.cu and seqalign.cu): the library has the same C interface, so the
+launchers of ops/nw_cuda.py and ops/seqalign_cuda.py can drive it with CPU
+tensors.  It exists
 for the tests, which thereby run a kernel's indexing, barriers and
 shuffles where there is no card; no entry point of the package uses it.
 """
@@ -147,8 +148,11 @@ def host_source(stem: str) -> str:
     src = re.sub(r"extern __shared__ int32_t (\w+)\[\];", r"int32_t* \1 = host_shared;", src)
     out, pos = [], 0
     while (k := src.find("<<<", pos)) >= 0:
-        start = k
-        while not src[start - 1].isspace():
+        start, depth = k, 0
+        while src[start - 1] == ">" or depth:    # template arguments
+            start -= 1
+            depth += {">": 1, "<": -1}.get(src[start], 0)
+        while src[start - 1].isalnum() or src[start - 1] == "_":
             start -= 1
         cfg_end = src.index(">>>(", k)
         grid, threads, nbytes = (c.strip() for c in src[k + 3:cfg_end].split(",")[:3])

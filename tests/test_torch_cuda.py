@@ -178,8 +178,9 @@ def assert_outputs_equal(got, want):
 
 @pytest.mark.parametrize("shape", [(9, 7, 37, 45), (33, 5, 100, 130),
                                    (6, 3, 300, 2500), (3, 3, 200, 9000),
-                                   (2, 2, 40000, 64)],
-                         ids=["tiny", "one-warp", "warps", "strips", "wide-key"])
+                                   (2, 2, 40000, 64), (5, 2, 400, 20000)],
+                         ids=["tiny", "one-warp", "warps", "strips", "wide-key",
+                              "many-blocks"])
 def test_local_kernels_match_plain(shape, cuda):
     R, P, lr, lp = shape
     reads = code_grid(1, R, lr).to(cuda)
@@ -194,7 +195,7 @@ def test_local_kernels_match_plain(shape, cuda):
     assert seqalign_cuda.LAUNCHES["pairs"] > before["pairs"]
 
 
-@pytest.mark.parametrize("width", [8, 16, 128, 512, 520, 2048])
+@pytest.mark.parametrize("width", [8, 16, 128, 512, 520, 1024, 2048, 4096])
 def test_banded_kernel_matches_plain(width, cuda):
     reads = code_grid(4, 40, 300).to(cuda)
     paths = code_grid(5, 40, 700).to(cuda)
@@ -205,6 +206,22 @@ def test_banded_kernel_matches_plain(width, cuda):
     assert_outputs_equal(got, seqalign._banded_forward(reads, paths, deltas,
                                                        width=width))
     assert seqalign_cuda.LAUNCHES["banded"] > before
+
+
+def test_banded_kernel_read_pool_off_a_word(cuda):
+    # rows of 300 codes in a contiguous view one byte past a word
+    reads = code_grid(4, 40, 300).to(cuda)
+    store = torch.full((40 * 300 + 1,), seqalign.PAD, dtype=torch.int8, device=cuda)
+    store[1:] = reads.reshape(-1)
+    shifted = store[1:].view(40, 300)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 4 == 1
+    paths = code_grid(5, 40, 700).to(cuda)
+    deltas = torch.from_numpy(np.random.default_rng(6).integers(-40, 300, 40)
+                              .astype(np.int32)).to(cuda)
+    for width in (128, 520):
+        got = seqalign.banded_pair_scores(shifted, paths, deltas, width=width)
+        assert_outputs_equal(got, seqalign._banded_forward(reads, paths, deltas,
+                                                           width=width))
 
 
 def test_seqalign_kernels_reject_bad_inputs(cuda):
