@@ -7,7 +7,9 @@ NVIDIA H100.  Run from the repository root, with no arguments:
 Phases (each prints a line; any failure raises and exits non-zero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build csrc/nw_path.cu (kernels K1 and K2) and csrc/seqalign.cu (K3,
-     K4, K5) with nvcc, both compilers started together, timed; then the
+     K4, K5) with nvcc, both compilers started together, and meanwhile the
+     native host runtime (native/gfalign_host.cpp: parsers, tracebacks,
+     seeding, the C++ search driver) with g++, each timed; then the
      machine instructions per DP cell of every K1, K2, K3 and K4 row loop,
      counted in cuobjdump's disassembly of the built libraries;
   3. K1 against its plain PyTorch version on the card, bit-exact, at the
@@ -23,6 +25,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
      tests/data/, then long-path scoring (batched_best_scores, which takes
      K2); launch counters are zeroed before and read after each of these
      three runs, and each run must have launched its kernel;
+ 5b. a curator's post-filter search: the truth GAF through `filter` with
+     the tangle's node list (golden md5), then the same search on that
+     read set (R = 249) with the Python driver scoring through K1 on the
+     card and with the C++ driver (`use_native=True`, scoring on the
+     host), in turns (Python, C++, C++, Python): each output byte-equal to
+     the golden, walls printed; the Python driver must launch K1 and the
+     C++ driver must not;
   6. K1 and K2 timed against their plain versions at the main path's own
      shapes (the largest search frontier; the long-path batch); phases 3,
      4 and 6 print the time recorded for the thread-per-pair layout that
@@ -39,11 +48,13 @@ Phases (each prints a line; any failure raises and exits non-zero):
   9. `align` end to end through gfalign_torch.cli.main.main on CUDA, three
      runs, each GAF equal to its golden in tests/data/ (md5 and record
      count) with the launch counters zeroed before and read after: the
-     seeded engine at full width (the 1,142-segment graph of
-     make_workload(seed=0) and the first 1,000 of its reads, 2-8 kb, hifi;
+     seeded engine at full scale (the 1,142-segment graph of
+     make_workload(seed=0) and all 10,000 of its reads, 2-8 kb, hifi;
      must launch K3), a small seeded run whose hand-made reads end on the
      band edge at both band widths (must launch K4), and the exhaustive
-     engine on a 34-segment graph (must launch K5);
+     engine on a 34-segment graph (must launch K5); every traceback of
+     every run must go through the native library (ops/seqalign's
+     TRACEBACK_CALLS: no Python traceback);
  10. K3, K4 and K5 timed against their plain versions at those runs' own
      shapes: K3 at the seeded run's largest chunk at widths 128 and 512, K4
      at the largest bucket launched, K5 at the exhaustive run's first call;
@@ -257,11 +268,17 @@ def phase_card():
 
 
 def phase_build():
+    from gfalign_torch.io import native
     from gfalign_torch.ops import cuda_build
 
     t0 = time.time()
     stems = ("nw_path", "seqalign")
     started = {stem: cuda_build.start_build(stem) for stem in stems}  # side by side
+    native_s = native.build()            # g++ while nvcc runs; raises on failure
+    if not native.available():
+        raise RuntimeError("the native host runtime did not load")
+    log(f"phase 2 build: native/gfalign_host.cpp (native host runtime) with g++ "
+        f"in {native_s:.1f} s, {native.LIB_PATH.relative_to(ROOT)}")
     for stem in stems:
         report = cuda_build.finish_build(stem, started[stem])
         for line in report.splitlines():
@@ -269,7 +286,7 @@ def phase_build():
                 log(f"  ptxas {stem}: " + line.strip())
     secs = time.time() - t0
     log(f"phase 2 build: csrc/nw_path.cu and csrc/seqalign.cu in {secs:.1f} s")
-    return secs, sass_per_cell(cuda_build)
+    return dict(cuda_s=secs, native_s=native_s), sass_per_cell(cuda_build)
 
 
 def sass_per_cell(cuda_build):
@@ -472,7 +489,63 @@ def phase_end_to_end(workdir, wl):
     log(f"phase 5 evalPath: golden md5 and line count, {secs:.2f} s, "
         f"launches {launches}")
     largest = max(frontiers, key=lambda f: f[0])
-    return search, evalpath, largest, search_argv
+    return search, evalpath, largest, search_argv, paths
+
+
+def phase_filtered_search(work, wl, paths):
+    """A curator's post-filter search (phase 5b): `filter` with the
+    tangle's node list, then the search of phase 5 on the filtered read set
+    through gfalign_torch.engine.search.search, by the Python driver (K1
+    on the card) and by the C++ driver (use_native=True), in turns."""
+    import torch
+
+    from gfalign_torch.engine.alignments import AlignmentSet
+    from gfalign_torch.engine.search import search
+    from gfalign_torch.io import native
+    from gfalign_torch.io.gfa import read_gfa
+    from gfalign_torch.ops import nw_cuda
+
+    golden = read_goldens()
+    nodes = pathlib.Path(work) / "filter_nodelist.ls"
+    nodes.write_text("".join(n + "\n" for n in wl.filter_nodelist))
+    filtered = str(pathlib.Path(work) / "filtered.gaf")
+    _, filter_s, _ = run_main(["filter", "-g", paths["gaf"], "-n", str(nodes),
+                               "-o", filtered])
+    if digest(pathlib.Path(filtered).read_bytes()) != golden["filtered.gaf"]:
+        raise RuntimeError("filter output differs from the golden filtered.gaf")
+    graph = read_gfa(paths["gfa"])
+    aln = AlignmentSet()
+    aln.load(filtered)
+    runs = []
+    for use_native in (False, True, True, False):
+        for k in nw_cuda.LAUNCHES:
+            nw_cuda.LAUNCHES[k] = 0
+        native.search_profile()                      # zero the driver's counters
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        search(graph, aln, paths["search_nodelist"], "498", "503", out=buf,
+               device="cuda", use_native=use_native)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total_s, eval_s, _, _ = native.search_profile()
+        name = "native" if use_native else "python"
+        if digest(buf.getvalue().encode()) != golden["search_filtered.out"]:
+            raise RuntimeError(f"post-filter search ({name} driver) differs from "
+                               f"the golden:\n{buf.getvalue()}")
+        k1 = nw_cuda.LAUNCHES["packed"]
+        if (k1 > 0) == use_native:
+            raise RuntimeError(f"post-filter search ({name} driver) launched K1 "
+                               f"{k1} times")
+        runs.append(dict(driver=name, wall_s=wall, k1_launches=k1,
+                         native_total_s=total_s, native_eval_s=eval_s))
+    walls = {d: [r["wall_s"] for r in runs if r["driver"] == d] for d in ("python", "native")}
+    log(f"phase 5b post-filter search: filter {filter_s:.2f} s, R={aln.count} reads; "
+        f"golden-equal on both drivers; walls (Python driver + K1, C++ driver, "
+        f"C++, Python) " + ", ".join(f"{r['wall_s']:.4f}" for r in runs) + " s; "
+        f"C++ driver's own split: total {runs[1]['native_total_s']:.4f} s, "
+        f"scoring {runs[1]['native_eval_s']:.4f} s; K1 launches of the Python "
+        f"driver {runs[0]['k1_launches']}")
+    return dict(reads=aln.count, filter_s=filter_s, runs=runs, walls=walls)
 
 
 def phase_profile(search_argv, unprofiled_window_s):
@@ -855,7 +928,7 @@ def run_align(name, runs, golden, workdir):
 
     from gfalign_torch.cli.main import main
     from gfalign_torch.engine import graph_align
-    from gfalign_torch.ops import seqalign_cuda
+    from gfalign_torch.ops import seqalign, seqalign_cuda
 
     gfa, reads, preset = runs[name]
     for path in (gfa, reads):
@@ -867,6 +940,8 @@ def run_align(name, runs, golden, workdir):
         seqalign_cuda.LAUNCHES[k] = 0
     for k in graph_align.PHASE_SECONDS:
         graph_align.PHASE_SECONDS[k] = 0.0
+    for k in seqalign.TRACEBACK_CALLS:
+        seqalign.TRACEBACK_CALLS[k] = 0
     rec = AlignRecorder()
     buf, err = io.StringIO(), io.StringIO()
     t0 = time.time()
@@ -875,8 +950,12 @@ def run_align(name, runs, golden, workdir):
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = dict(seqalign_cuda.LAUNCHES)
+    tracebacks = dict(seqalign.TRACEBACK_CALLS)
     if rc != 0:
         raise RuntimeError(f"align ({name}) exited {rc}: {err.getvalue()[-400:]}")
+    if tracebacks["python"] or not tracebacks["native"]:
+        raise RuntimeError(f"align ({name}) tracebacks {tracebacks}: each must go "
+                           f"through the native library")
     if not buf.getvalue().startswith(f"Invoking: gfalign-tpu-align -p {preset} "):
         raise RuntimeError(f"align ({name}) did not echo its invocation")
     got = digest(out_gaf.read_bytes())
@@ -889,7 +968,8 @@ def run_align(name, runs, golden, workdir):
     n_reads = golden[pathlib.Path(reads).name][1] // 2
     res = dict(seconds=secs, reads=n_reads, records=got[1], launches=launches,
                reads_per_s=n_reads / secs, device_ms=rec.device_ms(),
-               phase_seconds=dict(graph_align.PHASE_SECONDS), calls=rec.calls)
+               phase_seconds=dict(graph_align.PHASE_SECONDS), calls=rec.calls,
+               tracebacks=tracebacks)
     return res, rec
 
 
@@ -914,7 +994,7 @@ def phase_align(workdir, wl):
             f"{ph['traceback']:.2f} s, other {other:.2f} s; device busy in the "
             f"scorers {res['device_ms']:.1f} ms (idle share "
             f"{1 - res['device_ms'] / 1e3 / res['seconds']:.4f}); launches "
-            f"{res['launches']}")
+            f"{res['launches']}; tracebacks {res['tracebacks']}")
         if res["launches"][kernel] == 0:
             raise RuntimeError(f"align ({name}) did not launch {KERNELS[kernel]['name']}")
     if out["seeded"]["reads"] != ALIGN_SEEDED_READS:
@@ -1010,7 +1090,8 @@ def main(only: str = "") -> int:
 
     wl = synth.make_workload(seed=0)
     with tempfile.TemporaryDirectory() as workdir:
-        search, evalpath, largest, search_argv = phase_end_to_end(workdir, wl)
+        search, evalpath, largest, search_argv, paths = phase_end_to_end(workdir, wl)
+        filtered_search = phase_filtered_search(workdir, wl, paths)
         long_paths, long_tensors = phase_long_paths()
         k1, k2 = phase_main_shapes(largest, long_tensors)
         profile = phase_profile(search_argv, search["window_s"])
@@ -1037,6 +1118,7 @@ def main(only: str = "") -> int:
                           library_ms=None))
     details = dict(card=smi, device=name, build_s=build_s, sass=sass, k1_bench=k1_bench,
                    k2_check=k2_check, search=search, evalpath=evalpath,
+                   filtered_search=filtered_search,
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
                    seqalign_ragged=sa_ragged, seqalign_synthetic=sa_synthetic,
                    align=align, seqalign_main=sa_main,

@@ -7,7 +7,9 @@ gfalign_tpu.
 
 Subpackages
 -----------
-io        GFA, GAF and FASTA/FASTQ parsing, writers
+io        GFA, GAF and FASTA/FASTQ parsing, writers, the ctypes bindings of
+          the native host runtime (io/native.py) and its GAF cache
+native    the C++ host runtime's source, built with g++ at first use
 graph     graph model, name<->id vocab, adjacency, assembly statistics
 ops       NW path scoring and Smith-Waterman read scoring: plain PyTorch
           versions and the CUDA kernels

@@ -5,9 +5,9 @@ validateFiles/*.tst command lines run unmodified against this framework.
 Six modes: align, evalGFA, subgraph, search, filter, evalPath.  This is
 the PyTorch/CUDA port of gfalign_tpu/cli/main.py: every flag parses as
 there, and all six modes run, with align, search and evalPath scoring on
-`device` (CUDA unless the caller asks for the CPU).  `-j/--threads` is
-accepted and ignored (it sized the native host runtime, which is not
-ported yet), and a distributed run raises.
+`device` (CUDA unless the caller asks for the CPU).  `-j/--threads` sizes
+the native host runtime's thread pools (io/native.set_threads), and a
+distributed run raises.
 """
 
 from __future__ import annotations
@@ -295,6 +295,9 @@ def run(ui: UserInput, device: torch.device) -> int:
     out = sys.stdout
     if os.environ.get("GFALIGN_TORCH_DISTRIBUTED"):
         raise NotImplementedError("distributed runs are a later slice")
+    if ui.threads:
+        from ..io import native
+        native.set_threads(ui.threads)
     if ui.cmd_flag:
         # reference echoes every argv token as typed, incl. argv[0]
         # (src/main.cpp:651-656: printf("%s ", argv[i]) loop)

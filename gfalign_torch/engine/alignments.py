@@ -1,9 +1,10 @@
 """GAF record model and alignment-set operations.
 
 Functional equivalent of the reference's alignment layer
-(src/alignments.cpp / include/alignments.h).  This is the JAX package's
-record-list path; its native columnar loader is not part of the port yet,
-and the two produce identical output there (tests/test_native.py).
+(src/alignments.cpp / include/alignments.h), re-designed struct-of-arrays:
+the 9 numeric GAF columns live in numpy arrays so stats are vectorized
+reductions and path tokenization happens once into padded int tensors for
+device kernels.
 
 Byte-parity quirks intentionally reproduced (all observable in the goldens):
   * summary averages divide load-time totals by the *current* record count,
@@ -60,7 +61,10 @@ def _dup_stats_walk(qnames: Sequence[str], cols: np.ndarray,
     empty = (0, 0, 0, 0)
     if n == 0:
         return (empty + ([],)) if collect_pairs else empty
-    names = np.asarray(qnames, dtype=object)
+    if hasattr(qnames, "as_bytes_array"):
+        names = qnames.as_bytes_array()  # lazy column: no str churn
+    else:
+        names = np.asarray(qnames, dtype=object)
     new_run = np.empty(n, dtype=bool)
     new_run[0] = True
     np.not_equal(names[1:], names[:-1], out=new_run[1:])
@@ -179,12 +183,22 @@ class GafRecord:
 
 
 class AlignmentSet:
-    """The InAlignments equivalent: GafRecord objects parsed line by line.
-    All mutations (sort, filter) are index orders applied to the record
-    list."""
+    """The InAlignments equivalent, columnar-first.
+
+    The native loader keeps records as parallel columns (numeric array +
+    name/path/tag string lists + tokenized paths); GafRecord objects are
+    materialized lazily only for code paths that need them.  All mutations
+    (sort, filter, shard) are expressed as index orders applied to every
+    live representation, so they stay consistent."""
 
     def __init__(self) -> None:
-        self.records: List[GafRecord] = []
+        self._records: Optional[List[GafRecord]] = None
+        self._numeric: Optional[np.ndarray] = None   # (N, 10) int64
+        self._qnames: Optional[List[str]] = None
+        self._paths: Optional[List[str]] = None
+        self._tails: Optional[List[str]] = None
+        self._orig: Optional[np.ndarray] = None      # original file indices
+        self.tokens = None  # io.native.GafTokens columnar path tokens
         # load-time totals (never recomputed after filtering — quirk)
         self.tot_qlen = 0
         self.tot_algseq = 0
@@ -204,24 +218,75 @@ class AlignmentSet:
 
     @property
     def count(self) -> int:
-        return len(self.records)
+        if self._records is not None:
+            return len(self._records)
+        return len(self._qnames) if self._qnames is not None else 0
+
+    @property
+    def records(self) -> List[GafRecord]:
+        if self._records is None:
+            self._records = [self._make_record(i) for i in range(self.count)]
+        return self._records
+
+    @records.setter
+    def records(self, value: List[GafRecord]) -> None:
+        self._records = value
+        self._numeric = self._qnames = self._paths = self._tails = None
+
+    def _make_record(self, i: int) -> GafRecord:
+        row = self._numeric[i]
+        return GafRecord(self._qnames[i], int(row[0]), int(row[1]), int(row[2]),
+                         "-" if row[3] else "+", self._paths[i], int(row[4]),
+                         int(row[5]), int(row[6]), int(row[7]), int(row[8]),
+                         int(row[9]), self._tails[i], i)
 
     def qname_at(self, i: int) -> str:
-        return self.records[i].qname
+        if self._records is not None:
+            return self._records[i].qname
+        return self._qnames[i]
 
     def numeric_at(self, i: int, col: int) -> int:
         """col in the native order: 0 qlen 1 qstart 2 qend 3 strand 4 plen
         5 pstart 6 pend 7 matches 8 blocklen 9 mapq."""
-        r = self.records[i]
-        return (r.qlen, r.qstart, r.qend, 0 if r.strand == "+" else 1,
-                r.plen, r.pstart, r.pend, r.matches, r.blocklen, r.mapq)[col]
+        if self._records is not None:
+            r = self._records[i]
+            return (r.qlen, r.qstart, r.qend, 0 if r.strand == "+" else 1,
+                    r.plen, r.pstart, r.pend, r.matches, r.blocklen, r.mapq)[col]
+        return int(self._numeric[i, col])
 
     def line_at(self, i: int) -> str:
-        return self.records[i].to_line()
+        if self._records is not None:
+            return self._records[i].to_line()
+        row = self._numeric[i]
+        parts = [self._qnames[i], str(int(row[0])), str(int(row[1])),
+                 str(int(row[2])), "-" if row[3] else "+", self._paths[i],
+                 str(int(row[4])), str(int(row[5])), str(int(row[6])),
+                 str(int(row[7])), str(int(row[8])), str(int(row[9]))]
+        for lab, typ, content in _parse_tagtail(self._tails[i]):
+            parts.append(f"{lab}:{typ}:{content}")
+        return "\t".join(parts) + "\n"
 
     def _apply_order(self, order) -> None:
-        """Permute/subset the records by an index sequence."""
-        self.records = [self.records[int(i)] for i in order]
+        """Permute/subset every live representation by an index array."""
+        order = np.asarray(order, dtype=np.int64)
+        if self._records is not None:
+            self._records = [self._records[int(i)] for i in order]
+        if self._numeric is not None:
+            self._numeric = (self._numeric[order] if len(order)
+                             else self._numeric[:0])
+
+            def _take(col):
+                if hasattr(col, "take"):
+                    return col.take(order)
+                return [col[int(i)] for i in order]
+
+            self._qnames = _take(self._qnames)
+            self._paths = _take(self._paths)
+            self._tails = _take(self._tails)
+        if self._orig is not None:
+            self._orig = self._orig[order] if len(order) else self._orig[:0]
+        if self.tokens is not None:
+            self.tokens = self.tokens.subset(order)
 
     # -- load ------------------------------------------------------------
 
@@ -234,22 +299,81 @@ class AlignmentSet:
         merged with merge_distributed().  shard_by: "index" (round-robin,
         best load balance) or "qname" (stable-hash grouping, keeps duplicate
         groups host-local so markDuplicates stays correct)."""
-        from ..io.stream import iter_lines
-
         self.terminal_flag = terminal_flag
-        pos = 0
-        for line in iter_lines(path):
-            if not line:
-                continue
-            idx = pos
-            pos += 1
-            if shard and not _shard_keep(shard, shard_by, idx,
-                                         line.split("\t", 1)[0]):
-                continue
-            rec = GafRecord.from_line(line, idx)
-            self.records.append(rec)
-            self._accumulate(rec)
+        if not self._load_native(path, shard, shard_by):
+            from ..io.stream import iter_lines
+
+            if self._records is None:
+                self._records = []
+            pos = 0
+            for line in iter_lines(path):
+                if not line:
+                    continue
+                idx = pos
+                pos += 1
+                if shard and not _shard_keep(shard, shard_by, idx,
+                                             line.split("\t", 1)[0]):
+                    continue
+                rec = GafRecord.from_line(line, idx)
+                self._records.append(rec)
+                self._accumulate(rec)
         lg.verbose(f"Loaded {self.count} alignments from {path}")
+
+    def _load_native(self, path: str, shard: Optional[Tuple[int, int]] = None,
+                     shard_by: str = "index") -> bool:
+        """Fast path: multithreaded C++ columnar parse (io/native.py).  The
+        line parser reads stdin, and is the oracle when
+        `native.available()` is false."""
+        import os
+
+        from ..io import native
+
+        if path == "-" or not os.path.isfile(path) or not native.available():
+            return False
+        # gz inputs stay on the native path: the C++ loader inflates them
+        # in-memory (read_file/inflate_gz) before the threaded chunk parse
+        from ..io import cache
+
+        parsed = cache.load_gaf_cache(path)
+        from_cache = parsed is not None
+        if parsed is None:
+            parsed = native.parse_gaf(path, want_tokens=True)
+        if parsed is None:
+            return False
+        numeric, qnames, paths, tails, tokens = parsed
+        if not from_cache:
+            cache.store_gaf_cache(path, numeric, qnames, paths, tails, tokens)
+        if shard:
+            keep = np.asarray(
+                [i for i in range(len(qnames))
+                 if _shard_keep(shard, shard_by, i, qnames[i])], np.int64)
+            numeric = numeric[keep]
+            if hasattr(qnames, "take"):
+                qnames, paths, tails = (qnames.take(keep), paths.take(keep),
+                                        tails.take(keep))
+            else:
+                qnames = [qnames[int(i)] for i in keep]
+                paths = [paths[int(i)] for i in keep]
+                tails = [tails[int(i)] for i in keep]
+            tokens = tokens.subset(keep)
+            self._orig = keep
+        else:
+            self._orig = np.arange(len(qnames), dtype=np.int64)
+        self.tokens = tokens
+        self._numeric = numeric
+        self._qnames = qnames
+        self._paths = paths
+        self._tails = tails
+        if len(qnames):
+            self.tot_qlen += int(numeric[:, 0].sum())
+            self.tot_algseq += int((numeric[:, 2] - numeric[:, 1]).sum())
+            self.tot_minus += int(numeric[:, 3].sum())
+            self.tot_plus += len(qnames) - int(numeric[:, 3].sum())
+            self.tot_plen += int(numeric[:, 4].sum())
+            self.tot_matches += int(numeric[:, 7].sum())
+            self.tot_blocklen += int(numeric[:, 8].sum())
+            self.tot_mapq += int(numeric[:, 9].sum())
+        return True
 
     def _accumulate(self, rec: GafRecord) -> None:
         self.tot_qlen += rec.qlen
@@ -289,7 +413,11 @@ class AlignmentSet:
                  self.terminal_supplementary])
 
     def _orig_indices(self) -> np.ndarray:
-        return np.array([r.pos for r in self.records], dtype=np.int64)
+        if self._orig is not None:
+            return self._orig
+        if self._records is not None:
+            return np.array([r.pos for r in self._records], dtype=np.int64)
+        return np.arange(self.count, dtype=np.int64)
 
     def mark_duplicates_distributed(self, out=None) -> None:
         """EXACT multi-host duplicate/supplementary marking.  Per-host
@@ -310,9 +438,12 @@ class AlignmentSet:
         from ..parallel.dist import allgather_bytes
 
         cols_local = np.zeros((self.count, 6), dtype=np.int64)
-        for k, col in enumerate((1, 2, 4, 5, 6)):  # qStart qEnd pLen pStart pEnd
-            cols_local[:, k + 1] = [self.numeric_at(i, col)
-                                    for i in range(self.count)]
+        if self._records is None and self._numeric is not None:
+            cols_local[:, 1:] = self._numeric[:, [1, 2, 4, 5, 6]]
+        else:
+            for k, col in enumerate((1, 2, 4, 5, 6)):  # qStart qEnd pLen pStart pEnd
+                cols_local[:, k + 1] = [self.numeric_at(i, col)
+                                        for i in range(self.count)]
         cols_local[:, 0] = self._orig_indices()
         # length-prefixed framing (count + qname-blob byte length): immune to
         # empty qnames, which would desynchronize a newline-join/split
@@ -403,11 +534,21 @@ class AlignmentSet:
 
     def sort_by_name(self) -> None:
         # stable by qName (deterministic superset of the reference's
-        # non-stable std::sort, SURVEY.md section 4 quirk 9)
-        self._apply_order(sorted(range(self.count), key=self.qname_at))
+        # non-stable std::sort, SURVEY.md section 4 quirk 9).  Columnar
+        # loads argsort the NUL-padded bytes matrix — byte order equals
+        # str order for UTF-8, and NUL-padding sorts prefixes first, so
+        # this matches Python's sorted(); ~10x the keyed Python sort at
+        # 10M records.
+        if hasattr(self._qnames, "as_bytes_array"):
+            order = np.argsort(self._qnames.as_bytes_array(), kind="stable")
+        else:
+            order = sorted(range(self.count), key=self.qname_at)
+        self._apply_order(order)
 
     def _walk_cols(self) -> Tuple[List[str], np.ndarray]:
         """(qnames, (N,5) [qStart qEnd pLen pStart pEnd]) for the dup walk."""
+        if self._records is None and self._numeric is not None:
+            return self._qnames, self._numeric[:, [1, 2, 4, 5, 6]]
         qnames = [self.qname_at(i) for i in range(self.count)]
         cols = np.array([[self.numeric_at(i, c) for c in (1, 2, 4, 5, 6)]
                          for i in range(self.count)], dtype=np.int64)
@@ -429,8 +570,21 @@ class AlignmentSet:
 
     def filter_by_nodelist(self, nodelist: Sequence[str], min_nodes: int) -> None:
         headers = set(nodelist)
-        self.records = [r for r in self.records
-                        if r.is_contained(headers) and r.path_nodes_count() >= min_nodes]
+        if self.tokens is not None and self.count:
+            tok = self.tokens
+            member = np.asarray([name in headers for name in tok.names], bool)
+            lengths = np.diff(tok.offsets)
+            ok_steps = member[tok.step_ids] if tok.step_ids.size else np.zeros(0, bool)
+            contained = np.ones(self.count, dtype=bool)
+            nonempty = lengths > 0
+            if ok_steps.size:
+                starts = tok.offsets[:-1][nonempty]
+                contained[nonempty] = np.minimum.reduceat(ok_steps, starts) > 0
+            keep = contained & (lengths >= min_nodes)
+            self._apply_order(np.nonzero(keep)[0])
+        else:
+            self.records = [r for r in self.records
+                            if r.is_contained(headers) and r.path_nodes_count() >= min_nodes]
 
     # -- output ----------------------------------------------------------
 
@@ -447,7 +601,59 @@ class AlignmentSet:
     # -- tensorization ---------------------------------------------------
 
     def paths_as_ids(self, name_to_id: Dict[str, int]) -> List[List[Tuple[int, str]]]:
+        if self.tokens is not None:
+            tok = self.tokens
+            translate = [name_to_id.get(name, 0) for name in tok.names]
+            orient = "+-"
+            out = []
+            for i in range(self.count):
+                s, e = int(tok.offsets[i]), int(tok.offsets[i + 1])
+                out.append([(translate[tok.step_ids[j]],
+                             orient[tok.step_orients[j]]) for j in range(s, e)])
+            return out
         return [rec.path_ids(name_to_id) for rec in self.records]
+
+    def paths_padded(self, name_to_id: Dict[str, int], pad_to: Optional[int] = None):
+        """(ids, orients, lengths) padded int32/int8 arrays for device
+        scoring; orientation encoded 0='+', 1='-'; id pad = -1."""
+        if self.tokens is not None:
+            return self._paths_padded_tokens(name_to_id, pad_to)
+        ids_list = self.paths_as_ids(name_to_id)
+        n = len(ids_list)
+        max_len = max((len(p) for p in ids_list), default=1) or 1
+        if pad_to is not None:
+            max_len = max(max_len, pad_to)
+        ids = np.full((n, max_len), -1, dtype=np.int32)
+        orients = np.zeros((n, max_len), dtype=np.int8)
+        lengths = np.zeros((n,), dtype=np.int32)
+        for i, p in enumerate(ids_list):
+            lengths[i] = len(p)
+            for j, (sid, orientation) in enumerate(p):
+                ids[i, j] = sid
+                orients[i, j] = 0 if orientation == "+" else 1
+        return ids, orients, lengths
+
+
+    def _paths_padded_tokens(self, name_to_id, pad_to=None):
+        tok = self.tokens
+        n = self.count
+        lengths = np.diff(tok.offsets).astype(np.int32)
+        max_len = max(int(lengths.max()) if n else 1, 1)
+        if pad_to is not None:
+            max_len = max(max_len, pad_to)
+        # dictionary id -> graph uid (unknown names -> 0, phmap-style)
+        translate = np.asarray([name_to_id.get(name, 0) for name in tok.names],
+                               dtype=np.int32)
+        idx = tok.offsets[:-1, None] + np.arange(max_len, dtype=np.int32)[None, :]
+        mask = np.arange(max_len, dtype=np.int32)[None, :] < lengths[:, None]
+        safe = np.clip(idx, 0, max(tok.step_ids.size - 1, 0))
+        if tok.step_ids.size:
+            ids = np.where(mask, translate[tok.step_ids[safe]], -1).astype(np.int32)
+            orients = np.where(mask, tok.step_orients[safe], 0).astype(np.int8)
+        else:
+            ids = np.full((n, max_len), -1, np.int32)
+            orients = np.zeros((n, max_len), np.int8)
+        return ids, orients, lengths
 
 
 # -- alignment-derived edge graph (evalGFA support counting) ---------------
@@ -466,12 +672,49 @@ def build_edge_weights(alignments: AlignmentSet, name_to_id: Dict[str, int]) -> 
     (src/alignments.cpp:353-403) but as one canonical-key counting pass.
     The palindromic self-loop case (an edge equal to its own mirror) is
     resolved at lookup time (see edge_weight)."""
+    tok = getattr(alignments, "tokens", None)
+    if tok is not None and tok.step_ids.size:
+        return _edge_weights_vectorized(tok, name_to_id)
     weights: Dict[Tuple, int] = {}
     for rec in alignments.records:
         steps = rec.path_ids(name_to_id)
         for (s1, o1), (s2, o2) in zip(steps, steps[1:]):
             key = _canonical(s1, o1, s2, o2)
             weights[key] = weights.get(key, 0) + 1
+    return weights
+
+
+def _edge_weights_vectorized(tok, name_to_id: Dict[str, int]) -> Dict[Tuple, int]:
+    """Canonical-key pair counting as numpy group-by (same result as the
+    per-record loop; used automatically when columnar tokens exist)."""
+    translate = np.asarray([name_to_id.get(name, 0) for name in tok.names],
+                           dtype=np.int64)
+    ids = translate[tok.step_ids]
+    ors = tok.step_orients.astype(np.int64)
+    a, oa = ids[:-1], ors[:-1]
+    b, ob = ids[1:], ors[1:]
+    # drop pairs spanning record boundaries
+    boundary = np.zeros(len(ids), dtype=bool)
+    boundary[tok.offsets[1:-1]] = True  # first step of each later record
+    valid = ~boundary[1:]
+    a, oa, b, ob = a[valid], oa[valid], b[valid], ob[valid]
+    if not len(a):
+        return {}
+    k1 = a * 2 + oa
+    k2 = b * 2 + ob
+    m1 = b * 2 + (1 - ob)
+    m2 = a * 2 + (1 - oa)
+    take_mirror = (m1 < k1) | ((m1 == k1) & (m2 < k2))
+    c1 = np.where(take_mirror, m1, k1)
+    c2 = np.where(take_mirror, m2, k2)
+    packed = c1 << 32 | c2
+    uniq, counts = np.unique(packed, return_counts=True)
+    weights: Dict[Tuple, int] = {}
+    orient = "+-"
+    for key, cnt in zip(uniq.tolist(), counts.tolist()):
+        u1 = key >> 32
+        u2 = key & 0xFFFFFFFF
+        weights[(u1 >> 1, orient[u1 & 1], u2 >> 1, orient[u2 & 1])] = int(cnt)
     return weights
 
 

@@ -108,6 +108,20 @@ class ReadBatch:
         return self._prepared
 
 
+def native_scoring_ok(device) -> bool:
+    """Whether frontier and evalPath scoring run in the native host library
+    (nw_evaluate_frontier, nw_best_scores_batch) instead of the device step:
+    on the CPU, where the plain torch scorer's per-call cost dominates a
+    thin search and the C++ batch scorer computes the same int32 scores.
+    Never on CUDA: there K1 and K2 score, and no search or evalPath scoring
+    leaves the card unless a caller asks `search` for its native driver."""
+    if torch.device(device).type != "cpu":
+        return False
+    from ..io import native
+
+    return native.available()
+
+
 def _as_batch(read_paths, device) -> ReadBatch:
     if isinstance(read_paths, ReadBatch):
         return read_paths
@@ -144,10 +158,24 @@ def evaluate_candidates(candidates: Sequence[Sequence[Step]],
                         filter_alignments: bool = True,
                         device="cuda") -> List[PathScore]:
     """Score a frontier of candidates in one device step on the batch's
-    device (`device` applies only when `read_paths` is not a ReadBatch)."""
+    device (`device` applies only when `read_paths` is not a ReadBatch), or,
+    where `native_scoring_ok`, in one fused native call (membership filter,
+    fw/rc scoring and tallies)."""
     results = [PathScore() for _ in candidates]
     batch = _as_batch(read_paths, device)
     if batch.R == 0 or not candidates:
+        return results
+    if native_scoring_ok(batch.device):
+        from ..io import native
+
+        a_keys, a_len = encode_frontier(candidates)
+        tallies = native.nw_evaluate_frontier(
+            a_keys[:len(candidates)], a_len[:len(candidates)], batch.b_keys,
+            batch.lengths, filter_alignments)
+        for ci in range(len(candidates)):
+            results[ci].bad = int(tallies[ci, 0])
+            results[ci].good = int(tallies[ci, 1])
+            results[ci].unaligned = int(tallies[ci, 2])
         return results
     buf, C, n = _frontier_buffer(candidates)
     reads = batch.prepared()
@@ -171,9 +199,13 @@ def evaluate_path_printing(candidate: Sequence[Step],
     (reference evalPath mode, src/eval.cpp:100-105): the read row of the
     pairwise alignment, then qName and best score, tab-separated.
 
-    Orientation/score selection is ONE (1, 2R) scoring call on `device`
-    (fw and rc rows stacked); the host then walks only the chosen
-    orientation per read with the oracle for the printed line."""
+    Orientation/score selection is ONE (1, 2R) scoring call (fw and rc rows
+    stacked) on `device`, or in the native batch scorer where
+    `native_scoring_ok`; the host then walks only the chosen orientation per
+    read for the printed line with the native walk (nw_path_walk), whose
+    oracle `nw_align_oracle` runs when `native.available()` is false."""
+    from ..io import native
+
     result = PathScore()
     cand = [Step(s[0], s[1]) for s in candidate]
     rps = [[Step(s[0], s[1]) for s in rp] for rp in read_paths]
@@ -182,26 +214,63 @@ def evaluate_path_printing(candidate: Sequence[Step],
     if R == 0:
         return result
     rows = rps + rcps
-    device = torch.device(device)
     ak, al = encode_path_batch([cand], pad_pow2(len(cand)), pad_key=-1)
     bk, bl = encode_path_batch(rows, pad_pow2(max(len(r) for r in rows)),
                                pad_key=-2)
-    scores = nw_pair_scores(*(torch.from_numpy(x).to(device)
-                              for x in (ak, al, bk, bl))).cpu().numpy()[0]
+    if native_scoring_ok(device):
+        scores = native.nw_best_scores_batch(ak, al, bk, bl, with_rc=False)[0]
+    else:
+        device = torch.device(device)
+        scores = nw_pair_scores(*(torch.from_numpy(x).to(device)
+                                  for x in (ak, al, bk, bl))).cpu().numpy()[0]
     fw_s, rc_s = scores[:R], scores[R:2 * R]
 
+    def keys(path):
+        return np.array([s.id * 4 + ORIENT_CODE[s.orientation] for s in path],
+                        np.int64)
+
+    walk = native.available()
+    a_keys = keys(cand)
     for i, qname in enumerate(read_names):
         use_fw = fw_s[i] > rc_s[i]                       # tie -> rc
         b = rps[i] if use_fw else rcps[i]
         score = int(fw_s[i] if use_fw else rc_s[i])
-        best = nw_align_oracle(cand, b)
-        line = _alignment_string(best.a, best.b, id_to_name)
+        walked = native.nw_path_walk(a_keys, keys(b)) if walk else None
+        if walked is None:
+            best = nw_align_oracle(cand, b)
+            line = _alignment_string(best.a, best.b, id_to_name)
+        else:
+            line = _alignment_string_from_ops(cand, b, walked[1], id_to_name)
         if score < 0:
             result.bad += 1
         else:
             result.good += 1
         out.write(line + "\t" + qname + "\t" + str(score) + "\n")
     return result
+
+
+def _alignment_string_from_ops(cand: Sequence[Step], b: Sequence[Step],
+                               ops: str, id_to_name) -> str:
+    """Rebuild _alignment_string's read row from the native walk's move
+    ops ('M' diagonal, 'U' cand-step/read-gap, 'L' read-step/cand-gap)."""
+    parts = []
+    ia = ib = 0
+    for op in ops:
+        if op == "U":
+            parts.append("-" * (len(id_to_name(cand[ia].id)) + 1) + ",")
+            ia += 1
+        elif op == "M":
+            sb = b[ib]
+            if cand[ia] == sb:
+                parts.append("." * (len(id_to_name(sb.id)) + 1) + ",")
+            else:
+                parts.append(id_to_name(sb.id) + sb.orientation + ",")
+            ia += 1
+            ib += 1
+        else:  # 'L'
+            parts.append(id_to_name(b[ib].id) + b[ib].orientation + ",")
+            ib += 1
+    return "".join(parts)
 
 
 def _alignment_string(a: List[Step], b: List[Step], id_to_name) -> str:

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 from ..graph.model import Graph
 from ..ops.nw_path import Step
 from ..utils.log import lg
+from . import evaluate
 from .alignments import AlignmentSet
 from .evaluate import evaluate_candidates
 
@@ -101,6 +102,72 @@ class PartialPath:
     pid: int = -1
 
 
+def _native_search(graph: Graph, table: NodeTable, source: str,
+                   destination: str, read_batch, max_steps: int,
+                   min_nodes: int, return_all_paths: bool, out,
+                   spec_depth: int, speculate: int) -> bool:
+    """Run the C++ search driver (native/gfalign_host.cpp search_native) in
+    this process; True when it handled the search (output written).  The
+    driver is the same algorithm as the Python loop in `search` -- the same
+    heap order, speculation and caches, so byte-equal output
+    (tests/test_torch_native.py) -- with the frontier scoring of
+    nw_evaluate_frontier on the host, minus the Python bookkeeping per
+    step."""
+    import numpy as np
+
+    from ..io import native
+
+    n = graph.n_segments
+    if n == 0:
+        return False
+    source_uid = table.records[source][0]
+    dest_uid = table.records[destination][0]
+    if not (0 <= source_uid < n and 0 <= dest_uid < n):
+        return False
+    adj = graph.adjacency
+    counts = np.fromiter((len(a) for a in adj), np.int32, count=n)
+    adj_off = np.zeros(n + 1, np.int32)
+    np.cumsum(counts, out=adj_off[1:])
+    E = int(adj_off[-1])
+    adj_nid = np.empty(E, np.int32)
+    adj_or0 = np.empty(E, np.int8)
+    adj_or1 = np.empty(E, np.int8)
+    oc = {"+": 0, "-": 1}
+    k = 0
+    for a in adj:
+        for e in a:
+            adj_nid[k] = e.nid
+            adj_or0[k] = oc[e.or0]
+            adj_or1[k] = oc[e.or1]
+            k += 1
+    seg_names = [graph.segment(i).name for i in range(n)]
+    budget = np.full(n, -1, np.int32)
+    for i, nm in enumerate(seg_names):
+        rec = table.records.get(nm)
+        if rec is not None:
+            budget[i] = rec[1]
+    n_rec = len(table.records)
+    rec_uids = np.fromiter((uid for uid, _ in table.records.values()),
+                           np.int32, count=n_rec)
+    rec_counts = np.fromiter((c for _, c in table.records.values()),
+                             np.int32, count=n_rec)
+    enc = [s.encode() for s in seg_names]
+    name_off = np.zeros(n + 1, np.int64)
+    np.cumsum(np.fromiter(map(len, enc), np.int64, count=n),
+              out=name_off[1:])
+    lg.verbose("Starting search")
+    got = native.native_search(
+        adj_off, adj_nid, adj_or0, adj_or1, n, budget, rec_uids, rec_counts,
+        table.node_count, source_uid, dest_uid,
+        read_batch.b_keys, read_batch.lengths, max_steps, min_nodes,
+        return_all_paths, spec_depth, speculate, b"".join(enc), name_off)
+    if got is None:
+        return False
+    out.write(got.decode())
+    lg.verbose("Search completed")
+    return True
+
+
 def search(graph: Graph,
            alignments: Optional[AlignmentSet],
            node_file: str,
@@ -113,7 +180,13 @@ def search(graph: Graph,
            evaluate_fn=None,
            spec_depth: int = 2,
            speculate: Optional[int] = None,
-           device="cuda") -> None:
+           device="cuda",
+           use_native: Optional[bool] = None) -> None:
+    """Print the search TSV to `out`.  Frontiers score on `device` through
+    `evaluate_fn` (default `evaluate_candidates`).  `use_native` picks the
+    C++ driver (`_native_search`), which scores on the host: None takes it
+    where `native_scoring_ok(device)` holds (the CPU), True takes it on any
+    device; a caller's own `evaluate_fn` keeps the Python driver."""
     out = out or sys.stdout
     adj = graph.adjacency
     name_to_id = graph.name_to_id
@@ -135,6 +208,12 @@ def search(graph: Graph,
     table.add(destination, name_to_id.get(destination, 0), 1)
     dest_uid = table.records[destination][0]
 
+    if use_native is None:
+        use_native = evaluate.native_scoring_ok(read_batch.device)
+    if use_native and evaluate_fn is None and _native_search(
+            graph, table, source, destination, read_batch, max_steps,
+            min_nodes, return_all_paths, out, spec_depth, speculate):
+        return
     evaluate_fn = evaluate_fn or evaluate_candidates
 
     heap: List[Tuple[int, int, PartialPath]] = []

@@ -19,7 +19,7 @@ comes from the DP, seeding only bounds the search space.
 
 from __future__ import annotations
 
-from typing import List, Set, Tuple
+from typing import List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -54,8 +54,9 @@ class KmerIndex:
 
     def __init__(self, graph: Graph, k: int = K, sample_mod: int = 1):
         """sample_mod > 1 keeps ~1/mod of k-mers (deterministic 32-bit
-        Fibonacci-hash threshold): at assembly scale the full posting set
-        is large while a ~5 kb read still yields hundreds of sampled anchor
+        Fibonacci-hash threshold, identical in the native and numpy
+        builds): at assembly scale the full posting set is large while a
+        ~5 kb read still yields hundreds of sampled anchor
         votes."""
         from ..graph.stats import revcomp
 
@@ -82,21 +83,35 @@ class KmerIndex:
             codes = np.concatenate(parts)
             lens = np.asarray(len_l, np.int64)
             starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
-            kms = _kmer_codes(codes, k)
-            pos = np.arange(len(kms), dtype=np.int64)
-            blk = np.searchsorted(starts, pos, "right") - 1
-            ok = (kms >= 0) & (pos + k <= starts[blk] + lens[blk])
-            if self._sample_thresh:
-                h = (kms.astype(np.uint64) * 2654435761) & 0xFFFFFFFF
-                ok &= h < self._sample_thresh
-            kms = kms[ok]
-            blk = blk[ok]
-            offs = (pos[ok] - starts[blk]).astype(np.int32)
-            order = np.argsort(kms, kind="stable")
-            self.kmers = kms[order]                  # (T,) sorted
-            self.sids = np.asarray(sid_l, np.int32)[blk][order]
-            self.orients = np.asarray(or_l, np.int8)[blk][order]
-            self.offs = offs[order]
+            from ..io import native
+
+            built = (native.kmer_index_build(codes, starts, lens, k,
+                                             self._sample_thresh)
+                     if native.available() else None)
+            if built is not None:
+                # native rolling scan + stable radix sort, same posting
+                # order as the numpy oracle below
+                kms, blk, offs = built
+                self.kmers = kms        # int32: k <= 15 fits 30 bits
+                self.sids = np.asarray(sid_l, np.int32)[blk]
+                self.orients = np.asarray(or_l, np.int8)[blk]
+                self.offs = offs
+            else:
+                kms = _kmer_codes(codes, k)
+                pos = np.arange(len(kms), dtype=np.int64)
+                blk = np.searchsorted(starts, pos, "right") - 1
+                ok = (kms >= 0) & (pos + k <= starts[blk] + lens[blk])
+                if self._sample_thresh:
+                    h = (kms.astype(np.uint64) * 2654435761) & 0xFFFFFFFF
+                    ok &= h < self._sample_thresh
+                kms = kms[ok]
+                blk = blk[ok]
+                offs = (pos[ok] - starts[blk]).astype(np.int32)
+                order = np.argsort(kms, kind="stable")
+                self.kmers = kms[order]                  # (T,) sorted
+                self.sids = np.asarray(sid_l, np.int32)[blk][order]
+                self.orients = np.asarray(or_l, np.int8)[blk][order]
+                self.offs = offs[order]
         else:
             self.kmers = np.empty(0, np.int64)
             self.sids = np.empty(0, np.int32)
@@ -205,6 +220,31 @@ class KmerIndex:
                 for kk, vv in zip(ranked_keys[:cut], ranked_votes[:cut])]
 
 
+def _native_votes(index: KmerIndex, reads_codes, max_anchors: int,
+                  audits) -> Optional[List[List[Tuple[Tuple[int, str], int, int]]]]:
+    """Native anchor voting, or None (the oracle's turn: `native.available()`
+    false, or an index layout the library does not take); bit-exact with
+    the numpy path."""
+    from ..io import native
+
+    if not native.available() or getattr(index.uniq, "dtype", None) != np.int32:
+        return None
+    got = native.anchor_votes(index.uniq, index.starts, index.sids,
+                              index.orients, index.offs, reads_codes,
+                              index.k, max_anchors)
+    if got is None:
+        return None
+    sid, orient, diag, votes, roff, dropped = got
+    out: List[List[Tuple[Tuple[int, str], int, int]]] = []
+    for r in range(len(reads_codes)):
+        a, b = int(roff[r]), int(roff[r + 1])
+        out.append([((int(sid[i]), "+-"[orient[i]]), int(diag[i]),
+                     int(votes[i])) for i in range(a, b)])
+        if audits is not None and dropped[r]:
+            audits[r].hit("anchors_per_read", int(dropped[r]))
+    return out
+
+
 def anchors_with_diag_batch(index: KmerIndex,
                             reads_codes: List[np.ndarray],
                             max_anchors: int = MAX_ANCHORS_PER_READ,
@@ -214,7 +254,13 @@ def anchors_with_diag_batch(index: KmerIndex,
     id as the major sort key.  Per-read results (anchor order, diagonal
     votes, tie-extension, audit tallies) are identical to calling
     anchors_with_diag per read, but the per-call
-    numpy fixed costs are paid once per BATCH."""
+    numpy fixed costs are paid once per BATCH.  The native C++ voter
+    (io/native.anchor_votes, threaded over reads) takes the batch when the
+    library is loaded and the index has the native int32 layout; results
+    are bit-exact either way (tests/test_torch_native.py)."""
+    got = _native_votes(index, reads_codes, max_anchors, audits)
+    if got is not None:
+        return got
     qs, poss, rids = [], [], []
     for r, codes in enumerate(reads_codes):
         kms = _kmer_codes(codes, index.k)

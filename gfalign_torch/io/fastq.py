@@ -60,9 +60,25 @@ def iter_reads(path: str) -> Iterator[Tuple[str, str]]:
 
 
 def load_reads(paths) -> List[Tuple[str, str]]:
+    """Reads of FASTA/FASTQ files in order.  A plain file takes the native
+    threaded parser (io/native.parse_fastx); gzipped files and stdin take
+    the line parser above, which is also the oracle when
+    `native.available()` is false."""
+    import os
+
+    from . import native
+
     reads: List[Tuple[str, str]] = []
     if isinstance(paths, str):
         paths = [paths]
     for p in paths:
+        if p != "-" and os.path.isfile(p) and native.available():
+            with open(p, "rb") as probe:
+                gz = probe.read(2) == b"\x1f\x8b"
+            if not gz:
+                parsed = native.parse_fastx(p)
+                if parsed is not None:
+                    reads.extend(parsed)
+                    continue
         reads.extend(iter_reads(p))
     return reads

@@ -134,6 +134,54 @@ def parse_gfa_lines(lines: Iterable[str], graph: Graph = None) -> Graph:
 
 
 def read_gfa(path: str) -> Graph:
-    """Read a GFA file (plain, gzipped, or '-' for stdin) with the
-    line parser above."""
+    """Read a GFA file.  Plain and gzipped files take the native columnar
+    parse (threaded C++ chunk parse, native/gfalign_host.cpp, which inflates
+    gz in memory -- the role of gfalibs' gz-capable StreamObj + threaded
+    readGFA, reference src/input-gfalign.cpp:42-45); stdin takes the line
+    parser above, which is also the oracle when `native.available()` is
+    false.  Both produce identical graphs (tests/test_torch_native.py)."""
+    if path != "-":
+        import pathlib
+
+        from . import native
+
+        if pathlib.Path(path).is_file() and native.available():
+            graph = _read_gfa_native(path)
+            if graph is not None:
+                return graph
     return parse_gfa_lines(iter_lines(path))
+
+
+def _read_gfa_native(path: str) -> Graph:
+    from . import native
+
+    parsed = native.parse_gfa(path)
+    if parsed is None:
+        return None
+    (dict_names, seg_uids, seg_lens, seg_seqs, seg_tags, link_ids,
+     link_orients, link_overlaps, link_tags, other_lines) = parsed
+    graph = Graph()
+    # pre-seed the vocabulary in native first-mention order
+    for name in dict_names:
+        graph.uid(name)
+    for i, sid in enumerate(seg_uids):
+        name = dict_names[sid]
+        tags = _parse_tags(seg_tags[i].split("\t")) if seg_tags[i] else []
+        graph.add_segment(name, seg_seqs[i], tags)
+        if seg_seqs[i] == "*" and seg_lens[i] >= 0:
+            graph.segments[sid].length = int(seg_lens[i])
+    orient = "+-"
+    for i in range(len(link_ids)):
+        tags = _parse_tags(link_tags[i].split("\t")) if link_tags[i] else []
+        graph.links.append(Link(int(link_ids[i, 0]),
+                                orient[link_orients[i, 0]],
+                                int(link_ids[i, 1]),
+                                orient[link_orients[i, 1]],
+                                link_overlaps[i] or "*", tags))
+    # rare records (H/J/G/P/O) re-use the sequential parser against the
+    # same graph; every name they mention is already in the vocabulary, so
+    # uId assignment is unaffected (O groups may still add new names, as
+    # in the sequential parser)
+    parse_gfa_lines(other_lines, graph=graph)
+    return graph
+

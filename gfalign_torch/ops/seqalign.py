@@ -44,6 +44,9 @@ PAD = 5       # padding sentinel; code 4 = N (aligns as mismatch)
 _BLOCK = -1000  # padding must never extend an alignment
 _BIG = 1 << 30
 
+# Tracebacks by route: the native C++ walks or the numpy oracles below.
+TRACEBACK_CALLS = {"native": 0, "python": 0}
+
 # Plain-version working set: local_forward_ref keeps its (R, P, Lp + 1) rows
 # in read chunks of at most this many elements.
 _REF_CHUNK_ELEMS = 1 << 24
@@ -400,7 +403,22 @@ def _runs(ops) -> List[Tuple[int, str]]:
 
 def traceback(read: np.ndarray, path: np.ndarray,
               end_i: int, end_j: int) -> Placement:
-    """Recompute the pair DP and walk back from (end_i, end_j) to H==0."""
+    """Recompute the pair DP and walk back from (end_i, end_j) to H==0.
+
+    Runs the native C++ walk (io/native.local_traceback); the full-matrix
+    numpy row loop below is its oracle, taken when `native.available()` is
+    false or the walk declines."""
+    from ..io import native
+
+    if native.available():
+        TRACEBACK_CALLS["native"] += 1
+        res = native.local_traceback(read, path, end_i, end_j,
+                                     MATCH, MISMATCH, GAP, PAD, _BLOCK)
+        if res is not None:
+            score, qstart, pstart, matches, nm, ops = res
+            return Placement(score, qstart, end_i, pstart, end_j,
+                             _runs(ops), matches, nm)
+    TRACEBACK_CALLS["python"] += 1
     return _traceback_py(read, path, end_i, end_j)
 
 
@@ -416,9 +434,20 @@ def banded_traceback(read: np.ndarray, path: np.ndarray,
     `expected` (the device score) and the walk must never touch a band-edge
     lane.  Returns None when a gate fails (or coordinates are off-band) --
     the caller falls back to the exact full-matrix traceback().  The
-    exhaustive align mode never uses this path."""
-    res = _banded_traceback_py(read, path, end_i, end_j, delta, width,
-                               expected)
+    exhaustive align mode never uses this path.  Runs the native C++ walk
+    (io/native.banded_local_traceback); `_banded_traceback_py` is its
+    oracle, taken when `native.available()` is false."""
+    from ..io import native
+
+    if native.available():
+        TRACEBACK_CALLS["native"] += 1
+        res = native.banded_local_traceback(read, path, end_i, end_j, delta,
+                                            width, expected, MATCH, MISMATCH,
+                                            GAP, PAD, _BLOCK)
+    else:
+        TRACEBACK_CALLS["python"] += 1
+        res = _banded_traceback_py(read, path, end_i, end_j, delta, width,
+                                   expected)
     if res is None:
         return None
     score, qstart, pstart, matches, nm, ops = res

@@ -2,7 +2,9 @@
 package's (`gfalign_tpu.cli.main.main`): stdout and every output file
 byte-equal for search, evalPath, filter, subgraph and evalGFA, on a
 synthetic assembly workload and on randomized tangles (align has its own
-file, tests/test_torch_align.py)."""
+file, tests/test_torch_align.py).  Search and evalPath run on both CPU
+scoring routes (`scoring_route`): the plain torch scorer with the Python
+search driver, and the default native host scorer with the C++ driver."""
 
 import contextlib
 import io
@@ -21,6 +23,7 @@ from gfalign_torch import synth
 from gfalign_torch.cli.main import main as torch_main
 from gfalign_torch.io.writers import write_gfa1
 from tests.test_search_differential import random_gaf_file, random_tangle
+from tests.test_torch_evaluate import scoring_route  # noqa: F401  (fixture)
 from tests.test_torch_goldens import port_search_inputs
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -80,7 +83,7 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_cli_matches_jax(case, workload, tmp_path):
+def test_cli_matches_jax(case, workload, tmp_path, scoring_route):
     wl, paths = workload
     fill = dict(gfa=paths["gfa"], gaf=paths["gaf"],
                 nodes=paths["search_nodelist"], filt=paths["filter_nodelist"],
@@ -114,7 +117,7 @@ def _differential(seed, tmp_path):
 
 
 @pytest.mark.parametrize("seed", range(8))
-def test_search_randomized_tangles_match_jax(seed, tmp_path):
+def test_search_randomized_tangles_match_jax(seed, tmp_path, scoring_route):
     assert _differential(seed, tmp_path)
 
 
@@ -171,3 +174,21 @@ def test_distributed_mode_is_a_later_slice(workload, monkeypatch):
     with pytest.raises(NotImplementedError, match="later slice"):
         torch_main(["evalPath", "-f", paths["gfa"], "-g", paths["gaf"],
                     "-p", wl.true_path], device="cpu")
+
+
+def test_threads_flag_sizes_the_native_runtime(workload, tmp_path, monkeypatch):
+    from gfalign_torch.io import native
+
+    wl, paths = workload
+    calls = []
+    set_threads = native.set_threads
+    monkeypatch.setattr(native, "set_threads", lambda n: calls.append(n) or set_threads(n))
+    try:
+        (tmp_path / "torch").mkdir()
+        code, out, _ = run_cli(torch_main, ["evalPath", "-f", paths["gfa"], "-g", paths["gaf"],
+                                            "-p", wl.true_path, "-j", "3"],
+                               tmp_path / "torch", device="cpu")
+        assert code == 0 and out
+        assert calls == [3] and native.user_threads() == 3
+    finally:
+        set_threads(0)

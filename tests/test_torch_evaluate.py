@@ -1,7 +1,10 @@
 """Frontier tallies of the port (parallel/score_step.local_step and
 engine/evaluate.evaluate_candidates) against the JAX package's
 evaluate_candidates and _local_step, with the membership filter on and off.
-Tallies are int32 and compared with tolerance zero."""
+Tallies are int32 and compared with tolerance zero.  The tests that call
+evaluate_candidates run both CPU routes (`scoring_route`): the plain torch
+device step, and the native host scorer that `native_scoring_ok` picks on
+the CPU by default."""
 
 import random
 
@@ -37,9 +40,21 @@ def _tallies(scores):
     return [(s.bad, s.good, s.unaligned) for s in scores]
 
 
+@pytest.fixture(params=["torch", "native"])
+def scoring_route(request, monkeypatch):
+    """The CPU scoring route under test: "torch" turns the native predicate
+    off (the plain device step), "native" keeps the default (the C++ batch
+    scorer)."""
+    if request.param == "torch":
+        monkeypatch.setattr(TE, "native_scoring_ok", lambda device: False)
+    else:
+        assert TE.native_scoring_ok("cpu")
+    return request.param
+
+
 @pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
 @pytest.mark.parametrize("seed", range(6))
-def test_evaluate_candidates_match_jax(seed, filt):
+def test_evaluate_candidates_match_jax(seed, filt, scoring_route):
     cands, reads = random_frontier(seed)
     want = _tallies(JE.evaluate_candidates(cands, reads, filt))
     got = _tallies(TE.evaluate_candidates(cands, reads, filt, device="cpu"))
@@ -74,7 +89,7 @@ def test_local_step_matches_jax_local_step(seed):
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_read_batch_from_jax_arrays_gives_identical_tallies(seed):
+def test_read_batch_from_jax_arrays_gives_identical_tallies(seed, scoring_route):
     cands, reads = random_frontier(100 + seed)
     jb = JE.ReadBatch(reads)
     tb = TE.ReadBatch.from_arrays(jb.b_keys, jb.lengths, jb.ids, device="cpu")
@@ -104,7 +119,7 @@ def test_device_keys_pad_to_cpu_quantum():
 
 @pytest.mark.parametrize("filt", [True, False], ids=["filter", "nofilter"])
 @pytest.mark.parametrize("seed", range(4))
-def test_evaluate_candidates_shuffled_reads_match_jax(seed, filt):
+def test_evaluate_candidates_shuffled_reads_match_jax(seed, filt, scoring_route):
     """The port scores in the read operand's length-sorted order; the
     tallies are sums over reads, so a ReadBatch whose reads come in any
     order gives the JAX package's tallies."""

@@ -3,8 +3,11 @@
 `tests/data/torch_slice_search_seed0.out` is the stdout of `search -s 498
 -d 503` on `synth.make_workload(seed=0)` (1,000 segments, 10,000 reads)
 with its truth GAF, and `tests/data/torch_slice_evalpath_seed0.md5` holds
-the md5 and line count of the inputs and of the `evalPath` stdout.  Both
-were produced by the JAX package on the CPU:
+the md5 and line count of the inputs, of the `evalPath` stdout, and of a
+curator's post-filter search (chip_smoke.py phase 5b): the truth GAF
+through `filter -n filter_nodelist.ls` (filtered.gaf), then the same
+search on that GAF (search_filtered.out).  All were produced by the JAX
+package on the CPU:
 
     JAX_PLATFORMS=cpu python tests/test_torch_goldens.py --regenerate
 
@@ -31,7 +34,7 @@ DATA = pathlib.Path(__file__).resolve().parent / "data"
 SEARCH_GOLDEN = DATA / "torch_slice_search_seed0.out"
 MD5_GOLDEN = DATA / "torch_slice_evalpath_seed0.md5"
 ALIGN_MD5_GOLDEN = DATA / "torch_slice_align_seed0.md5"
-ALIGN_SEEDED_READS = 1000   # of make_workload(seed=0)'s 10,000 (a cut, PERF.md)
+ALIGN_SEEDED_READS = 10000  # all of make_workload(seed=0)'s reads
 SEARCH_ARGS = ["-s", "498", "-d", "503"]
 EVALPATH_PATH = "498+,499+,500+,501+,502+,503+"
 
@@ -51,18 +54,22 @@ def read_md5_golden(path=MD5_GOLDEN):
 
 
 def write_search_inputs(synth, write_gfa1, wl, out_dir):
-    """Write what `search` and `evalPath` read -- graph.gfa, the truth GAF
-    truth.gaf and search_nodelist.tsv -- with one package's writers (not
-    the reads, ~100 MB of FASTQ at full scale); returns the path of each."""
+    """Write what `search`, `evalPath` and `filter` read -- graph.gfa, the
+    truth GAF truth.gaf, search_nodelist.tsv and filter_nodelist.ls -- with
+    one package's writers (not the reads, ~100 MB of FASTQ at full scale);
+    returns the path of each."""
     d = pathlib.Path(out_dir)
     d.mkdir(parents=True, exist_ok=True)
     paths = {"gfa": str(d / "graph.gfa"), "gaf": str(d / "truth.gaf"),
-             "search_nodelist": str(d / "search_nodelist.tsv")}
+             "search_nodelist": str(d / "search_nodelist.tsv"),
+             "filter_nodelist": str(d / "filter_nodelist.ls")}
     with open(paths["gfa"], "w") as fh:
         write_gfa1(wl.graph, fh.write)
     synth.write_truth_gaf(wl, paths["gaf"])
     pathlib.Path(paths["search_nodelist"]).write_text(
         "".join(row + "\n" for row in wl.search_nodelist))
+    pathlib.Path(paths["filter_nodelist"]).write_text(
+        "".join(n + "\n" for n in wl.filter_nodelist))
     return paths
 
 
@@ -174,6 +181,32 @@ def test_port_synth_writes_recorded_inputs(tmp_path):
         assert digest(pathlib.Path(paths[key]).read_bytes()) == want[name], name
 
 
+def test_port_post_filter_search_matches_golden(tmp_path):
+    """chip_smoke.py phase 5b's inputs and output on the CPU: the port's
+    filter writes the recorded filtered.gaf, and the port's default CPU
+    search (the C++ driver) prints the recorded TSV."""
+    import contextlib
+    import io
+
+    from gfalign_torch import synth
+    from gfalign_torch.cli.main import main
+
+    paths = port_search_inputs(synth.make_workload(seed=0), tmp_path)
+    want = read_md5_golden()
+    filtered = str(tmp_path / "filtered.gaf")
+    outs = []
+    for argv in (["filter", "-g", paths["gaf"], "-n", paths["filter_nodelist"],
+                  "-o", filtered],
+                 ["search", "-f", paths["gfa"], "-g", filtered, "-n",
+                  paths["search_nodelist"]] + SEARCH_ARGS):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(argv, device="cpu") == 0
+        outs.append(buf.getvalue().encode())
+    assert digest(pathlib.Path(filtered).read_bytes()) == want["filtered.gaf"]
+    assert digest(outs[1]) == want["search_filtered.out"]
+
+
 def _regenerate(align_only: bool = False) -> None:
     import contextlib
     import io
@@ -193,19 +226,27 @@ def _regenerate(align_only: bool = False) -> None:
         if align_only:
             return
         paths = write_search_inputs(synth, write_gfa1, wl, d)
+        filtered = str(d / "filtered.gaf")
         outs = {}
-        for mode, extra in (("search", ["-n", paths["search_nodelist"]]
-                             + SEARCH_ARGS),
-                            ("evalPath", ["-p", EVALPATH_PATH])):
+        for name, argv in (
+                ("search", ["search", "-f", paths["gfa"], "-g", paths["gaf"],
+                            "-n", paths["search_nodelist"]] + SEARCH_ARGS),
+                ("evalPath", ["evalPath", "-f", paths["gfa"], "-g", paths["gaf"],
+                              "-p", EVALPATH_PATH]),
+                ("filter", ["filter", "-g", paths["gaf"], "-n",
+                            paths["filter_nodelist"], "-o", filtered]),
+                ("search_filtered", ["search", "-f", paths["gfa"], "-g", filtered,
+                                     "-n", paths["search_nodelist"]] + SEARCH_ARGS)):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
-                rc = main([mode, "-f", paths["gfa"], "-g", paths["gaf"]] + extra)
-            assert rc == 0, mode
-            outs[mode] = buf.getvalue().encode()
+                rc = main(argv)
+            assert rc == 0, name
+            outs[name] = buf.getvalue().encode()
         SEARCH_GOLDEN.write_bytes(outs["search"])
         rows = [(*digest((d / n).read_bytes()), n)
-                for n in ("graph.gfa", "truth.gaf")]
+                for n in ("graph.gfa", "truth.gaf", "filtered.gaf")]
         rows.append((*digest(outs["evalPath"]), "evalpath.out"))
+        rows.append((*digest(outs["search_filtered"]), "search_filtered.out"))
         MD5_GOLDEN.write_text("".join(f"{m}  {n}  {name}\n"
                                       for m, n, name in rows))
 

@@ -47,7 +47,8 @@ def test_align_modules_are_scanned():
     for name in ("gfalign_torch/io/fastq.py", "gfalign_torch/ops/seqalign.py",
                  "gfalign_torch/ops/seqalign_cuda.py", "gfalign_torch/ops/cuda_build.py",
                  "gfalign_torch/engine/seeding.py", "gfalign_torch/engine/graph_align.py",
-                 "gfalign_torch/engine/aligner.py", "chip_smoke.py"):
+                 "gfalign_torch/engine/aligner.py", "gfalign_torch/io/native.py",
+                 "gfalign_torch/io/cache.py", "chip_smoke.py"):
         assert name in SOURCES, name
 
 
