@@ -58,14 +58,30 @@ Phases (each prints a line; any failure raises and exits non-zero):
  10. K3, K4 and K5 timed against their plain versions at those runs' own
      shapes: K3 at the seeded run's largest chunk at widths 128 and 512, K4
      at the largest bucket launched, K5 at the exhaustive run's first call;
-     K3 and K4 with the first design's recorded times beside.
+     K3 and K4 with the first design's recorded times beside;
+ 11. distribution: two rank processes on the one card, launched as
+     torchrun would (127.0.0.1, a free port, gloo, /dev/shm), each
+     checking that it scores on CUDA: (a) the full-scale search with the
+     reads sharded by qname, Python driver + K1 (golden-equal, K1 launched
+     on each rank); (b) the post-filter search (R = 249) with the frontier
+     sharded, by the Python driver + K1 and by the C++ driver over the
+     /dev/shm ring (golden md5); (c) the seeded align of all 10,000 reads,
+     reads sharded by index, rank 0 writing the GAF (golden md5, K3
+     launched on each rank, every traceback native), its wall beside
+     phase 9's; (d) evalGFA statistics with duplicate marking on the truth
+     GAF, equal to the one-process run's bytes; (e) `python -m
+     gfalign_torch search` with GFALIGN_TORCH_DISTRIBUTED=1 on the
+     post-filter reads (golden md5, K1 launched on each rank: the CLI's
+     default driver on CUDA).  A rank that exits non-zero or differs fails the
+     script; past the deadline every rank is killed and the script fails.
 
 A kernel's bound is its useful DP cells times its integer-ALU operations
 per cell (OPS_PER_CELL) over the card's int32 ALU rate, or its bytes over
 HBM bandwidth if larger.  For K3-K5 the cells are those of the rows up to
 each read's last non-PAD char (the kernels skip the rest).
 
-`python3 chip_smoke.py --nw` stops after phase 4 (build, K1 and K2 against
+`python3 chip_smoke.py --dist` runs phases 1, 2 and 11 only (no result
+line); `python3 chip_smoke.py --nw` stops after phase 4 (build, K1 and K2 against
 their plain versions: under a minute) and prints no result line;
 `python3 chip_smoke.py --sa` runs phases 1, 2 and 8 only (build, K3-K5
 against their plain versions and at the synthesised phase-10 shapes: about
@@ -422,8 +438,9 @@ def run_main(argv):
     return buf.getvalue().encode(), secs, launches
 
 
-def phase_end_to_end(workdir, wl):
-    import gfalign_torch.engine.search as search_mod
+def write_inputs(workdir, wl, phase="5"):
+    """The full-scale workload's graph, truth GAF and search node list,
+    written into workdir and md5-checked against the recorded inputs."""
     from gfalign_torch import synth
     from gfalign_torch.io.writers import write_gfa1
 
@@ -440,8 +457,16 @@ def phase_end_to_end(workdir, wl):
     for key, name in (("gfa", "graph.gfa"), ("gaf", "truth.gaf")):
         if digest(pathlib.Path(paths[key]).read_bytes()) != golden[name]:
             raise RuntimeError(f"{name} differs from the recorded input")
-    log(f"phase 5 inputs: make_workload(seed=0) written and md5-checked in "
+    log(f"phase {phase} inputs: make_workload(seed=0) written and md5-checked in "
         f"{time.time() - t0:.1f} s")
+    return paths
+
+
+def phase_end_to_end(workdir, wl):
+    import gfalign_torch.engine.search as search_mod
+
+    paths = write_inputs(workdir, wl)
+    golden = read_goldens()
 
     frontiers = []
     score_s = [0.0]
@@ -492,6 +517,19 @@ def phase_end_to_end(workdir, wl):
     return search, evalpath, largest, search_argv, paths
 
 
+def write_filtered(work, wl, paths):
+    """`filter` of the truth GAF with the tangle's node list (golden md5):
+    the post-filter read set; returns (its path, the filter's seconds)."""
+    nodes = pathlib.Path(work) / "filter_nodelist.ls"
+    nodes.write_text("".join(n + "\n" for n in wl.filter_nodelist))
+    filtered = str(pathlib.Path(work) / "filtered.gaf")
+    _, filter_s, _ = run_main(["filter", "-g", paths["gaf"], "-n", str(nodes),
+                               "-o", filtered])
+    if digest(pathlib.Path(filtered).read_bytes()) != read_goldens()["filtered.gaf"]:
+        raise RuntimeError("filter output differs from the golden filtered.gaf")
+    return filtered, filter_s
+
+
 def phase_filtered_search(work, wl, paths):
     """A curator's post-filter search (phase 5b): `filter` with the
     tangle's node list, then the search of phase 5 on the filtered read set
@@ -506,13 +544,7 @@ def phase_filtered_search(work, wl, paths):
     from gfalign_torch.ops import nw_cuda
 
     golden = read_goldens()
-    nodes = pathlib.Path(work) / "filter_nodelist.ls"
-    nodes.write_text("".join(n + "\n" for n in wl.filter_nodelist))
-    filtered = str(pathlib.Path(work) / "filtered.gaf")
-    _, filter_s, _ = run_main(["filter", "-g", paths["gaf"], "-n", str(nodes),
-                               "-o", filtered])
-    if digest(pathlib.Path(filtered).read_bytes()) != golden["filtered.gaf"]:
-        raise RuntimeError("filter output differs from the golden filtered.gaf")
+    filtered, filter_s = write_filtered(work, wl, paths)
     graph = read_gfa(paths["gfa"])
     aln = AlignmentSet()
     aln.load(filtered)
@@ -1050,6 +1082,251 @@ def phase_seqalign_main_shapes(recs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2
+DIST_SECONDS = 420      # deadline of the rank workers' spawn (all runs a-d)
+DIST_CLI_SECONDS = 180  # deadline of the CLI's spawn (run e)
+
+# Run e: `python -m gfalign_torch ...` itself (runpy, the arguments after
+# -c), then the process's K1/K2 launch counts on a line of stderr.
+CLI_COUNTING = """
+import json, runpy, sys
+from gfalign_torch.ops import nw_cuda
+code = 0
+try:
+    runpy.run_module("gfalign_torch", run_name="__main__", alter_sys=True)
+except SystemExit as exc:
+    code = exc.code
+sys.stdout.flush()
+print("LAUNCHES " + json.dumps(nw_cuda.LAUNCHES), file=sys.stderr, flush=True)
+raise SystemExit(code)
+"""
+
+
+def spawn_ranks(argv, workdir, name, timeout, env=None):
+    """Run DIST_RANKS processes of `python3 argv...` from the repository
+    root as torchrun would (parallel/dist.launch_local), with PYTHONPATH
+    at the root; returns their stdouts and stderrs.  A rank that exits
+    non-zero fails the phase, and when the deadline passes every rank is
+    killed and the phase fails."""
+    from gfalign_torch.parallel import dist
+
+    logs = pathlib.Path(workdir) / name
+    logs.mkdir(exist_ok=True)
+    try:
+        got = dist.launch_local(argv, DIST_RANKS, timeout, logs, cwd=ROOT,
+                                env={"PYTHONPATH": str(ROOT), **(env or {})})
+    except RuntimeError as exc:
+        raise RuntimeError(f"phase 11 {name}: {exc}") from exc
+    bad = [(rank, rc) for rank, (rc, _, _) in enumerate(got) if rc != 0]
+    if bad:
+        raise RuntimeError(f"phase 11 {name}: ranks exited {bad}; stderr tails "
+                           f"{[err[-1500:] for _, _, err in got]}")
+    return [out for _, out, _ in got], [err for _, _, err in got]
+
+
+def rank_run_search(graph, aln, nodes, device, evaluate_fn, use_native):
+    """One search on this rank with the launch counters zeroed: (stdout
+    bytes, wall seconds, K1 launches)."""
+    import torch
+
+    from gfalign_torch.engine.search import search
+    from gfalign_torch.ops import nw_cuda
+
+    for k in nw_cuda.LAUNCHES:
+        nw_cuda.LAUNCHES[k] = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    search(graph, aln, nodes, "498", "503", out=buf, device=device,
+           evaluate_fn=evaluate_fn, use_native=use_native)
+    torch.cuda.synchronize()
+    return buf.getvalue().encode(), time.perf_counter() - t0, nw_cuda.LAUNCHES["packed"]
+
+
+def rank_worker(spec_path):
+    """One rank of phase 11 (`chip_smoke.py --rank-worker spec.json`, spawned
+    by phase_distributed): runs (a)-(d) on this rank's device and checks
+    every output and launch count, raising on the first difference;
+    writes its numbers to <spec out>.rank<r>.json."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from gfalign_torch.cli.main import main as cli_main
+    from gfalign_torch.engine import graph_align
+    from gfalign_torch.engine.alignments import AlignmentSet
+    from gfalign_torch.engine.evaluate import (distributed_evaluator,
+                                               frontier_sharded_evaluator)
+    from gfalign_torch.io.gfa import read_gfa
+    from gfalign_torch.ops import seqalign, seqalign_cuda
+    from gfalign_torch.parallel import dist
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    dist.init_if_requested()
+    pid, count = dist.process_info()
+    if count != DIST_RANKS:
+        raise RuntimeError(f"rank worker: {count} processes, want {DIST_RANKS}")
+    device = dist.rank_device("cuda")
+    if device.type != "cuda":
+        raise RuntimeError(f"rank {pid} scores on {device}")
+    res = dict(rank=pid, device=str(device), card=torch.cuda.get_device_name(device))
+    graph = read_gfa(spec["gfa"])
+
+    # (a) the full-scale search, reads sharded by qname, Python driver + K1
+    aln = AlignmentSet()
+    aln.load(spec["gaf"], shard=(pid, count), shard_by="qname")
+    out, wall, k1 = rank_run_search(graph, aln, spec["nodes"], device,
+                                    distributed_evaluator(), False)
+    if out != pathlib.Path(spec["search_golden"]).read_bytes():
+        raise RuntimeError(f"rank {pid}: read-sharded search differs from the golden")
+    if k1 == 0:
+        raise RuntimeError(f"rank {pid}: read-sharded search launched no K1")
+    res["search"] = dict(reads=aln.count, wall_s=wall, k1_launches=k1)
+
+    # (b) the post-filter search, frontier sharded, both drivers
+    aln = AlignmentSet()
+    aln.load(spec["filtered"])
+    res["filtered"] = []
+    for use_native in (False, True):
+        out, wall, k1 = rank_run_search(graph, aln, spec["nodes"], device,
+                                        frontier_sharded_evaluator(), use_native)
+        driver = "native" if use_native else "python"
+        if digest(out) != tuple(spec["filtered_golden"]):
+            raise RuntimeError(f"rank {pid}: post-filter search ({driver} driver) "
+                               f"differs from the golden")
+        if (k1 > 0) == use_native:
+            raise RuntimeError(f"rank {pid}: post-filter search ({driver} driver) "
+                               f"launched K1 {k1} times")
+        res["filtered"].append(dict(driver=driver, reads=aln.count, wall_s=wall,
+                                    k1_launches=k1))
+
+    # (d) evalGFA statistics with duplicate marking, through the CLI's main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["evalGFA", "-g", spec["gaf"]])
+    wall = time.perf_counter() - t0
+    got = digest(buf.getvalue().encode())
+    want = tuple(spec["evalgfa_digest"]) if pid == 0 else digest(b"")
+    if rc != 0 or got != want:
+        raise RuntimeError(f"rank {pid}: evalGFA printed {got}, want {want}")
+    res["evalgfa"] = dict(wall_s=wall)
+
+    # (c) the seeded align of all reads, reads sharded by index, K3
+    for k in seqalign_cuda.LAUNCHES:
+        seqalign_cuda.LAUNCHES[k] = 0
+    for k in graph_align.PHASE_SECONDS:
+        graph_align.PHASE_SECONDS[k] = 0.0
+    for k in seqalign.TRACEBACK_CALLS:
+        seqalign.TRACEBACK_CALLS[k] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli_main(["align", "-f", spec["align_gfa"], "-r", spec["align_reads"],
+                       "-o", spec["align_out"], "-p", "hifi"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(seqalign_cuda.LAUNCHES)
+    tracebacks = dict(seqalign.TRACEBACK_CALLS)
+    if rc != 0:
+        raise RuntimeError(f"rank {pid}: align exited {rc}")
+    if launches["banded"] == 0:
+        raise RuntimeError(f"rank {pid}: align launched no K3")
+    if tracebacks["python"] or not tracebacks["native"]:
+        raise RuntimeError(f"rank {pid}: align tracebacks {tracebacks}")
+    if pid == 0:                       # rank 0 wrote the gathered GAF
+        got = digest(pathlib.Path(spec["align_out"]).read_bytes())
+        if got != tuple(spec["align_golden"]):
+            raise RuntimeError(f"distributed align GAF {got} differs from the golden "
+                               f"{spec['align_golden']}")
+    res["align"] = dict(wall_s=wall, launches=launches, tracebacks=tracebacks,
+                        phase_seconds=dict(graph_align.PHASE_SECONDS))
+    pathlib.Path(f"{spec['out']}.rank{pid}.json").write_text(json.dumps(res))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def phase_distributed(workdir, wl, paths=None, single_align_s=None):
+    """Phase 11: DIST_RANKS rank processes on the one card, over gloo and
+    /dev/shm (a-d in one spawn of rank_worker, e through the CLI):
+    (a) the full-scale search with reads sharded, Python driver + K1;
+    (b) the post-filter search (R = 249) with the frontier sharded, by the
+    Python driver + K1 and by the C++ driver over the ring; (c) the seeded
+    align of all reads with reads sharded, K3; (d) evalGFA statistics with
+    duplicate marking; (e) `python -m gfalign_torch search` on the
+    post-filter reads.  Every output against its golden (or, for d, the
+    one-process run's bytes)."""
+    from tests.test_torch_goldens import port_align_workloads
+
+    work = pathlib.Path(workdir)
+    if paths is None:
+        paths = write_inputs(workdir, wl, phase="11")
+    filtered = work / "filtered.gaf"
+    if not filtered.exists():
+        write_filtered(work, wl, paths)
+    align_dir = work / "align"
+    if not (align_dir / "seeded.fa").exists():
+        t0 = time.time()
+        port_align_workloads(wl, align_dir)
+        log(f"phase 11 inputs: align workloads written in {time.time() - t0:.1f} s")
+    evalgfa, evalgfa_s, _ = run_main(["evalGFA", "-g", paths["gaf"]])
+    golden = read_goldens()
+    align_golden = read_goldens("torch_slice_align_seed0.md5")
+    spec = dict(gfa=paths["gfa"], gaf=paths["gaf"], nodes=paths["search_nodelist"],
+                filtered=str(filtered), search_golden=str(ROOT / "tests/data/torch_slice_search_seed0.out"),
+                filtered_golden=golden["search_filtered.out"],
+                evalgfa_digest=digest(evalgfa), align_gfa=str(align_dir / "seeded.gfa"),
+                align_reads=str(align_dir / "seeded.fa"),
+                align_out=str(work / "seeded.dist.gaf"),
+                align_golden=align_golden["seeded.gaf"], out=str(work / "phase11"))
+    spec_path = work / "phase11.json"
+    spec_path.write_text(json.dumps(spec))
+    t0 = time.time()
+    _, errs = spawn_ranks([str(ROOT / "chip_smoke.py"), "--rank-worker", str(spec_path)],
+                          workdir, "worker", DIST_SECONDS)
+    worker_s = time.time() - t0
+    ranks = [json.loads(pathlib.Path(f"{spec['out']}.rank{r}.json").read_text())
+             for r in range(DIST_RANKS)]
+    notes = sorted({line.split("] ", 1)[-1] for e in errs for line in e.splitlines()
+                    if "allreduce over" in line})
+    log(f"phase 11 {DIST_RANKS} ranks on {ranks[0]['card']} ({', '.join(r['device'] for r in ranks)}), "
+        f"runs a-d in {worker_s:.1f} s with start-up; {'; '.join(notes)}")
+    for r in ranks:
+        a, b, c = r["search"], r["filtered"], r["align"]
+        ph = c["phase_seconds"]
+        log(f"phase 11 rank {r['rank']}: (a) read-sharded search {a['reads']} reads "
+            f"golden-equal in {a['wall_s']:.2f} s, K1 launches {a['k1_launches']}; "
+            f"(b) post-filter search frontier-sharded golden-equal, Python driver + K1 "
+            f"{b[0]['wall_s']:.4f} s (K1 launches {b[0]['k1_launches']}), C++ driver "
+            f"{b[1]['wall_s']:.4f} s; (d) evalGFA {r['evalgfa']['wall_s']:.2f} s; "
+            f"(c) align {c['wall_s']:.2f} s, seeding {ph['seeding']:.2f} s, scoring "
+            f"{ph['scoring']:.2f} s, tracebacks {ph['traceback']:.2f} s "
+            f"({c['tracebacks']['native']} native), K3 launches {c['launches']['banded']}")
+    single = f"{single_align_s:.2f} s" if single_align_s else "not run"
+    log(f"phase 11 (c) seeded align, all 10,000 reads on {DIST_RANKS} ranks: GAF golden-equal "
+        f"(rank 0 wrote it), slowest rank {max(r['align']['wall_s'] for r in ranks):.2f} s "
+        f"against phase 9's one process {single}; (d) bytes equal to the one-process "
+        f"evalGFA ({evalgfa_s:.2f} s)")
+    t0 = time.time()
+    outs, errs = spawn_ranks(["-c", CLI_COUNTING, "search", "-f", paths["gfa"], "-g",
+                              str(filtered), "-n", paths["search_nodelist"], "-s", "498",
+                              "-d", "503"], workdir, "cli", DIST_CLI_SECONDS)
+    cli_s = time.time() - t0
+    if digest(outs[0].encode()) != golden["search_filtered.out"] or any(outs[1:]):
+        raise RuntimeError(f"phase 11 (e) CLI search: rank 0 printed {digest(outs[0].encode())}"
+                           f", the others {[len(o) for o in outs[1:]]} bytes")
+    cli_k1 = [[json.loads(line[9:])["packed"] for line in e.splitlines()
+               if line.startswith("LAUNCHES ")][-1] for e in errs]
+    if not all(cli_k1):
+        raise RuntimeError(f"phase 11 (e) CLI search: K1 launches by rank {cli_k1}")
+    log(f"phase 11 (e) GFALIGN_TORCH_DISTRIBUTED=1 python -m gfalign_torch search on "
+        f"the post-filter reads, {DIST_RANKS} ranks: rank 0 golden-equal, the others "
+        f"silent, K1 launches by rank {cli_k1}, {cli_s:.1f} s with start-up")
+    return dict(ranks=ranks, worker_s=worker_s, cli_s=cli_s, cli_k1_launches=cli_k1, transport=notes,
+                single_align_s=single_align_s, single_evalgfa_s=evalgfa_s)
+
+
 def dump_details(details, name):
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1077,6 +1354,16 @@ def main(only: str = "") -> int:
         log(f"phases 1, 2 and 8 passed in {time.time() - t_start:.1f} s (--sa: "
             f"the other phases were not run, so no result line is printed)")
         return 0
+    if only == "dist":
+        from gfalign_torch import synth
+
+        with tempfile.TemporaryDirectory() as workdir:
+            distributed = phase_distributed(workdir, synth.make_workload(seed=0))
+        dump_details(dict(card=smi, device=name, build_s=build_s, distributed=distributed),
+                     "chip_smoke_dist.json")
+        log(f"phases 1, 2 and 11 passed in {time.time() - t_start:.1f} s on {smi} (--dist: "
+            f"the other phases were not run, so no result line is printed)")
+        return 0
     k1_bench = phase_k1_bench(gen)
     k2_check = phase_k2(gen)
     if only == "nw":
@@ -1099,6 +1386,7 @@ def main(only: str = "") -> int:
         sa_synthetic = phase_seqalign_synthetic()
         align, recs = phase_align(workdir, wl)
         sa_main = phase_seqalign_main_shapes(recs)
+        distributed = phase_distributed(workdir, wl, paths, align["seeded"]["seconds"])
 
     launches = {"packed": search["launches"]["packed"] + evalpath["launches"]["packed"],
                 "split": long_paths["launches"]["split"],
@@ -1121,10 +1409,10 @@ def main(only: str = "") -> int:
                    filtered_search=filtered_search,
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
                    seqalign_ragged=sa_ragged, seqalign_synthetic=sa_synthetic,
-                   align=align, seqalign_main=sa_main,
+                   align=align, seqalign_main=sa_main, distributed=distributed,
                    ops_per_cell=OPS_PER_CELL, seconds=time.time() - t_start)
     dump_details(details, "chip_smoke.json")
-    log(f"all phases passed in {details['seconds']:.1f} s")
+    log(f"all phases passed in {details['seconds']:.1f} s on {smi}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
@@ -1132,6 +1420,8 @@ def main(only: str = "") -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in ([], ["--nw"], ["--sa"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--nw | --sa]")
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":   # phase 11's ranks
+        raise SystemExit(rank_worker(sys.argv[2]))
+    if sys.argv[1:] not in ([], ["--nw"], ["--sa"], ["--dist"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--nw | --sa | --dist]")
     raise SystemExit(main(only=sys.argv[1][2:] if sys.argv[1:] else ""))

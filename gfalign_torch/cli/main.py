@@ -6,8 +6,14 @@ Six modes: align, evalGFA, subgraph, search, filter, evalPath.  This is
 the PyTorch/CUDA port of gfalign_tpu/cli/main.py: every flag parses as
 there, and all six modes run, with align, search and evalPath scoring on
 `device` (CUDA unless the caller asks for the CPU).  `-j/--threads` sizes
-the native host runtime's thread pools (io/native.set_threads), and a
-distributed run raises.
+the native host runtime's thread pools (io/native.set_threads).
+
+A distributed run is N processes launched as torchrun launches them
+(`torchrun --nproc-per-node N -m gfalign_torch ...`, or RANK, WORLD_SIZE,
+MASTER_ADDR and MASTER_PORT set by hand) with GFALIGN_TORCH_DISTRIBUTED=1:
+they join a gloo process group (parallel/dist.py), each scores on its own
+device, and rank 0 alone writes stdout and the output files, the same
+bytes as one process.
 """
 
 from __future__ import annotations
@@ -293,15 +299,32 @@ def run(ui: UserInput, device: torch.device) -> int:
     from ..utils.log import lg
 
     out = sys.stdout
+    # multi-process mode: GFALIGN_TORCH_DISTRIBUTED=1 -> gloo process
+    # group, qname-sharded loading, summed statistics
+    shard = None
     if os.environ.get("GFALIGN_TORCH_DISTRIBUTED"):
-        raise NotImplementedError("distributed runs are a later slice")
+        import io
+
+        from ..parallel import dist
+        dist.init_if_requested()
+        shard = dist.process_info()
+        if shard == (0, 1):
+            shard = None
+        elif not _distributes(ui):
+            if shard[0] != 0:
+                return 0
+            shard = None
+        else:
+            device = dist.rank_device(device)
+            if shard[0] != 0:   # identical output everywhere; print once
+                out = io.StringIO()
     if ui.threads:
         from ..io import native
         native.set_threads(ui.threads)
     if ui.cmd_flag:
         # reference echoes every argv token as typed, incl. argv[0]
         # (src/main.cpp:651-656: printf("%s ", argv[i]) loop)
-        print("".join(t + " " for t in ui.cmd_echo))
+        out.write("".join(t + " " for t in ui.cmd_echo) + "\n")
 
     graph = None
     if ui.in_sequence:
@@ -313,18 +336,34 @@ def run(ui: UserInput, device: torch.device) -> int:
     alignments = AlignmentSet()
     if ui.in_align:
         lg.verbose(f"Alignment: {ui.in_align}")
-        alignments.load(ui.in_align, ui.terminal_alignments_flag)
-    return _run_mode(ui, graph, alignments, out, device)
+        alignments.load(ui.in_align, ui.terminal_alignments_flag, shard=shard,
+                        shard_by="qname")
+    return _run_mode(ui, graph, alignments, out, device, shard)
 
 
-def _run_mode(ui, graph, alignments, out, device) -> int:
+def _distributes(ui: UserInput) -> bool:
+    """Whether a mode has an exact distributed form: search, align and the
+    evalGFA statistics (duplicate marking, summed totals).  Modes that
+    write the whole record set (filter, subgraph, evalPath, sorted or
+    decorated evalGFA output) run on rank 0 alone, since a shard of the
+    records would write a shard of the output."""
+    if ui.mode == 3:
+        return True
+    if ui.mode not in (0, 1) or ui.sort_alignment_flag:
+        return False
+    return not ui.out_file or (ui.mode == 0 and bool(ui.in_reads))
+
+
+def _run_mode(ui, graph, alignments, out, device, shard=None) -> int:
     mode = ui.mode
     if mode == 0:
         from ..engine.aligner import align_mode
         if ui.in_reads:
+            # distributed align: reads sharded by index across processes,
+            # rank 0 gathers and writes the input-order GAF
             align_mode(graph, ui.in_reads, ui.out_file, ui.preset,
                        overrides=ui.align_overrides, echo=True, out=out,
-                       device=device)
+                       shard=shard, device=device)
             ui.out_file = ""  # -o was the aligner's GAF; don't let the
             # evalGFA fall-through below overwrite it with a decorated GFA
         # falls through to evalGFA behavior (reference
@@ -333,7 +372,14 @@ def _run_mode(ui, graph, alignments, out, device) -> int:
     if mode == 1:
         if ui.in_align:
             alignments.sort_by_name()
-            alignments.mark_duplicates(out)
+            if shard is not None:
+                # exact global duplicate marking (the cross-process
+                # scratch-leak quirk included), then the summed load-time
+                # totals
+                alignments.mark_duplicates_distributed(out)
+                alignments.merge_distributed(dup_counts=False)
+            else:
+                alignments.mark_duplicates(out)
             if ui.align_stats_flag:
                 alignments.print_stats(out)
             elif ui.sort_alignment_flag:
@@ -366,9 +412,17 @@ def _run_mode(ui, graph, alignments, out, device) -> int:
             print("search: missing input graph (-f)", file=sys.stderr)
             return 1
         from ..engine.search import search
+        evaluate_fn = None
+        if shard is not None and ui.in_align:
+            # reads sharded by qname whatever their number: on one H100
+            # neither evaluator was the faster across read counts from
+            # 249 to 10,000 (PERF.md section 5), and this one loads a
+            # shard instead of every record
+            from ..engine.evaluate import distributed_evaluator
+            evaluate_fn = distributed_evaluator()
         search(graph, alignments if ui.in_align else None, ui.node_file,
                ui.source, ui.destination, ui.dijkstra_steps, ui.min_nodes,
-               ui.return_all_paths, out, device=device)
+               ui.return_all_paths, out, evaluate_fn=evaluate_fn, device=device)
     elif mode == 4:
         nodelist = _read_nodelist(ui.node_file)
         alignments.filter_by_nodelist(nodelist, ui.min_nodes)

@@ -287,3 +287,63 @@ def _alignment_string(a: List[Step], b: List[Step], id_to_name) -> str:
         else:
             parts.append("." * (len(id_to_name(sb.id)) + 1) + ",")
     return "".join(parts)
+
+
+def distributed_evaluator(base=evaluate_candidates):
+    """Multi-process evaluate_fn: each process scores its LOCAL read shard,
+    then the (bad, good, unaligned) tallies are summed across processes
+    (parallel/dist.allreduce_stats).  The search loop is deterministic
+    given the summed scores, so every process evolves the same heap and
+    produces identical output.  A process whose shard is empty, or whose
+    frontier is, scores nothing but still takes part in the sum, and each
+    shard's empty read paths are in its own `good` (ReadBatch.n_empty), so
+    the sum stays exact.
+
+    The CLI's evaluator for every distributed search: on one H100 neither
+    this nor frontier_sharded_evaluator was the faster across read counts
+    from 249 to 10,000 (PERF.md section 5)."""
+    from ..parallel.dist import allreduce_stats
+
+    def evaluate(candidates, read_paths, filter_alignments=True):
+        local = base(candidates, read_paths, filter_alignments)
+        flat = []
+        for s in local:
+            flat.extend((s.bad, s.good, s.unaligned))
+        merged = allreduce_stats(flat)
+        return [PathScore(merged[3 * i], merged[3 * i + 1], merged[3 * i + 2])
+                for i in range(len(local))]
+
+    # marker read by engine/search: a read-sharded evaluation maps to the
+    # native driver's ring-sum mode, and its read count is summed
+    evaluate.read_sharded = True
+    return evaluate
+
+
+def frontier_sharded_evaluator(base=evaluate_candidates):
+    """Multi-process evaluate_fn for THIN read sets: every process holds the
+    FULL read batch, scores a round-robin 1/Nth of the frontier's
+    candidates, and the per-candidate tallies are summed across processes
+    (each candidate's slots are zero everywhere except its owner, so the
+    sum is an allgather).  Parallelism over the frontier: it divides the
+    scoring work even when the read batch is too small to shard.  For
+    callers of `search` that hold every read on every process; the CLI
+    takes distributed_evaluator."""
+    from ..parallel.dist import allreduce_stats, process_info
+
+    def evaluate(candidates, read_paths, filter_alignments=True):
+        pid, count = process_info()
+        mine = list(range(pid, len(candidates), count))
+        local = base([candidates[i] for i in mine], read_paths,
+                     filter_alignments)
+        flat = [0] * (3 * len(candidates))
+        for slot, i in enumerate(mine):
+            s = local[slot]
+            flat[3 * i:3 * i + 3] = (s.bad, s.good, s.unaligned)
+        merged = allreduce_stats(flat)
+        return [PathScore(merged[3 * i], merged[3 * i + 1], merged[3 * i + 2])
+                for i in range(len(candidates))]
+
+    # marker read by engine/search: a frontier-sharded evaluation runs
+    # inside the native driver when the /dev/shm ring is agreed
+    evaluate.frontier_sharded = True
+    return evaluate

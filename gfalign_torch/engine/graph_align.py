@@ -1205,6 +1205,63 @@ def emit_gaf(results, write) -> None:
             ]) + "\n")
 
 
+def align_reads_distributed(graph: Graph, reads, params: AlignParams,
+                            shard, device="cuda") -> Optional[str]:
+    """Read-sharded multi-process align: reads are independent, so each
+    process aligns reads[pid::count] on its own device, serializes its
+    per-read GAF blocks (length-prefixed, so a read without records is an
+    empty block), and one allgather reassembles the exact input order on
+    rank 0, returned as the whole GAF text; other ranks return None and
+    write nothing.  Byte-identical to a single-process run, since per-read
+    results do not depend on batch composition.
+
+    Unless -j set a thread cap, each process caps the native thread pool
+    at this host's cores over its co-located processes for the run, and
+    restores the default afterwards."""
+    import io as _io
+    import os
+    import struct
+
+    from ..io import native
+    from ..parallel.dist import allgather_bytes, local_process_count, process_info
+
+    pid, count = shard
+    if process_info() != (pid, count):
+        raise RuntimeError(f"align shard {shard} is not this process's place in "
+                           f"the process group {process_info()}")
+    capped = native.user_threads() == 0
+    if capped:
+        cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+            else (os.cpu_count() or 1)
+        native.set_threads(max(1, cores // local_process_count()))
+    try:
+        local = [reads[i] for i in range(pid, len(reads), count)]
+        results = align_reads(graph, local, params=params, device=device)
+    finally:
+        if capped:
+            native.set_threads(0)
+    blocks: List[bytes] = []
+    for res in results:
+        buf = _io.StringIO()
+        emit_gaf([res], buf.write)
+        blocks.append(buf.getvalue().encode())
+    payload = b"".join(struct.pack("<I", len(b)) + b for b in blocks)
+    gathered = allgather_bytes(payload)
+    if pid != 0:
+        return None
+    per_rank: List[List[bytes]] = []
+    for blob in gathered:
+        off, lst = 0, []
+        while off < len(blob):
+            (n,) = struct.unpack_from("<I", blob, off)
+            off += 4
+            lst.append(blob[off:off + n])
+            off += n
+        per_rank.append(lst)
+    return b"".join(per_rank[i % count][i // count]
+                    for i in range(len(reads))).decode()
+
+
 def run_graph_aligner(graph: Graph, read_files, out_file: str,
                       preset: str = "hifi", overrides=None,
                       echo: bool = False, out=None, shard=None,
@@ -1244,9 +1301,18 @@ def run_graph_aligner(graph: Graph, read_files, out_file: str,
             f" --max-paths-per-anchor {params.max_paths_per_anchor}"
             f" --band {params.band} --wide-band {params.wide_band}\n")
     if shard is not None and shard[1] > 1:
-        from ..parallel.dist import allgather_bytes
-
-        allgather_bytes(b"")  # raises: distributed align is a later slice
+        text = align_reads_distributed(graph, reads, params, shard, device)
+        if text is None:
+            return  # non-zero rank: rank 0 writes the gathered GAF
+        lg.verbose(f"Aligned {len(reads)} reads (distributed x{shard[1]}): "
+                   f"{text.count(chr(10))} records")
+        if out_file:
+            stream = OutputStream(out_file)
+            stream.write(text)
+            stream.close()
+        else:
+            sys.stdout.write(text)
+        return
     results = align_reads(graph, reads, params=params, device=device)
     n_hits = sum(len(h) for _, _, h in results)
     lg.verbose(f"Aligned {len(reads)} reads: {n_hits} records")

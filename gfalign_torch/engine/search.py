@@ -102,17 +102,34 @@ class PartialPath:
     pid: int = -1
 
 
+def _ring_agreed() -> bool:
+    """Whether the C++ driver can run this process's distributed search:
+    one process, or every process maps the /dev/shm tally ring (an answer
+    all processes share)."""
+    from ..parallel import dist
+
+    if dist.process_info()[1] == 1:
+        return True
+    return bool(dist._shm_ring())
+
+
 def _native_search(graph: Graph, table: NodeTable, source: str,
                    destination: str, read_batch, max_steps: int,
                    min_nodes: int, return_all_paths: bool, out,
-                   spec_depth: int, speculate: int) -> bool:
-    """Run the C++ search driver (native/gfalign_host.cpp search_native) in
-    this process; True when it handled the search (output written).  The
-    driver is the same algorithm as the Python loop in `search` -- the same
-    heap order, speculation and caches, so byte-equal output
+                   spec_depth: int, speculate: int, dist_mode=None) -> bool:
+    """Run the C++ search driver (native/gfalign_host.cpp search_native);
+    True when it handled the search (output written).  The driver is the
+    same algorithm as the Python loop in `search` -- the same heap order,
+    speculation and caches, so byte-equal output
     (tests/test_torch_native.py) -- with the frontier scoring of
     nw_evaluate_frontier on the host, minus the Python bookkeeping per
-    step."""
+    step.
+
+    dist_mode "frontier" (reads replicated) shards the speculative
+    frontier round-robin over the processes, "read" (reads sharded) sums
+    every candidate's tallies over them; both exchange through the
+    /dev/shm tally ring (parallel/dist._ShmRing), which the caller has
+    checked every process maps."""
     import numpy as np
 
     from ..io import native
@@ -124,6 +141,18 @@ def _native_search(graph: Graph, table: NodeTable, source: str,
     dest_uid = table.records[destination][0]
     if not (0 <= source_uid < n and 0 <= dest_uid < n):
         return False
+    pid, nproc, ring = 0, 1, None
+    if dist_mode is not None:
+        from ..parallel import dist
+
+        pid, nproc = dist.process_info()
+        if nproc > 1:
+            ring = dist._shm_ring()
+            # fresh batch numbering for this search: each process zeroes
+            # its own ring cells, then one barrier makes that visible
+            ring.reset_local()
+            dist.barrier()
+            native.set_wait_timeout(dist.wait_seconds())
     adj = graph.adjacency
     counts = np.fromiter((len(a) for a in adj), np.int32, count=n)
     adj_off = np.zeros(n + 1, np.int32)
@@ -160,7 +189,11 @@ def _native_search(graph: Graph, table: NodeTable, source: str,
         adj_off, adj_nid, adj_or0, adj_or1, n, budget, rec_uids, rec_counts,
         table.node_count, source_uid, dest_uid,
         read_batch.b_keys, read_batch.lengths, max_steps, min_nodes,
-        return_all_paths, spec_depth, speculate, b"".join(enc), name_off)
+        return_all_paths, spec_depth, speculate, b"".join(enc), name_off,
+        pid=pid, nproc=nproc, ring_buf=ring.address if ring else None,
+        ring_width=ring.WIDTH if ring else 0,
+        ring_slots=ring.SLOTS if ring else 0,
+        ring_sum_mode=dist_mode == "read")
     if got is None:
         return False
     out.write(got.decode())
@@ -186,7 +219,16 @@ def search(graph: Graph,
     `evaluate_fn` (default `evaluate_candidates`).  `use_native` picks the
     C++ driver (`_native_search`), which scores on the host: None takes it
     where `native_scoring_ok(device)` holds (the CPU), True takes it on any
-    device; a caller's own `evaluate_fn` keeps the Python driver."""
+    device, False keeps the Python driver; so on CUDA every frontier goes
+    through K1 unless the caller asks for the host.  A caller's own `evaluate_fn` keeps the
+    Python driver, except the distributed evaluators of engine/evaluate
+    (`distributed_evaluator`, `frontier_sharded_evaluator`), which the C++
+    driver runs over the /dev/shm tally ring when every process maps it.
+
+    Speculation width depends only on values every process of a
+    distributed run holds alike (the read count summed over a read-sharded
+    run), so all processes make the same frontier calls and so the same
+    collectives."""
     out = out or sys.stdout
     adj = graph.adjacency
     name_to_id = graph.name_to_id
@@ -195,11 +237,21 @@ def search(graph: Graph,
         read_paths = [[Step(i, o) for i, o in p] for p in alignments.paths_as_ids(name_to_id)]
     from .evaluate import ReadBatch
     read_batch = ReadBatch(read_paths, device)
+    dist_mode = None
+    if getattr(evaluate_fn, "read_sharded", False):
+        dist_mode = "read"
+    elif getattr(evaluate_fn, "frontier_sharded", False):
+        dist_mode = "frontier"
+    n_reads = read_batch.R
+    if dist_mode == "read":
+        from ..parallel.dist import allreduce_stats
+        n_reads = allreduce_stats([read_batch.R])[0]
     if speculate is None:
         # wider speculation cuts dispatch/sync count; its cost (scoring
         # candidates that never pop) scales with the read batch, so go
-        # wide only when reads are few
-        speculate = 256 if read_batch.R <= 512 else 64
+        # wide only when reads are few.  The global count: processes
+        # whose shards straddle 512 must still speculate alike.
+        speculate = 256 if n_reads <= 512 else 64
 
     table = NodeTable.from_file(node_file, name_to_id)
     # unknown source/destination names default-insert uId 0, matching phmap
@@ -208,12 +260,20 @@ def search(graph: Graph,
     table.add(destination, name_to_id.get(destination, 0), 1)
     dest_uid = table.records[destination][0]
 
-    if use_native is None:
-        use_native = evaluate.native_scoring_ok(read_batch.device)
-    if use_native and evaluate_fn is None and _native_search(
-            graph, table, source, destination, read_batch, max_steps,
-            min_nodes, return_all_paths, out, spec_depth, speculate):
-        return
+    if use_native is not False and (evaluate_fn is None or dist_mode):
+        asked = use_native
+        if use_native is None:
+            use_native = evaluate.native_scoring_ok(read_batch.device)
+        if use_native and dist_mode and not _ring_agreed():
+            if asked:
+                raise RuntimeError("the C++ search driver runs distributed only "
+                                   "over /dev/shm, which not every process maps")
+            use_native = False
+        if use_native and _native_search(
+                graph, table, source, destination, read_batch, max_steps,
+                min_nodes, return_all_paths, out, spec_depth, speculate,
+                dist_mode):
+            return
     evaluate_fn = evaluate_fn or evaluate_candidates
 
     heap: List[Tuple[int, int, PartialPath]] = []

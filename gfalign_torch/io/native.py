@@ -4,8 +4,10 @@ The C++ source is the port's own copy, gfalign_torch/native/gfalign_host.cpp:
 multithreaded GFA/GAF/FASTA/FASTQ parsers, the Smith-Waterman tracebacks of
 `align`, k-mer index build and anchor voting, the path-space NW walk and
 its batched host scorer, and the tangle-search driver.  It is compiled
-with g++ at first use into build/gfalign_torch/native/ (never the source
-tree) with the flags of native/Makefile, and rebuilt when the source is
+with g++ at first use into build/gfalign_torch/native/ of a source
+checkout, or the user's cache for an installed package
+(utils/build_dir.py; never the source tree), with the flags of
+native/Makefile, and rebuilt when the source is
 newer than the library.  A compile goes to a temporary name under a file
 lock and is renamed into place, so that concurrent processes neither race
 on one file nor build twice.
@@ -34,18 +36,20 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-SOURCE = pathlib.Path(__file__).resolve().parent.parent / "native" / "gfalign_host.cpp"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "gfalign_torch" / "native"
-LIB_PATH = BUILD_DIR / "libgfalign_host.so"
-_lib: Optional[ctypes.CDLL] = None
-_load_lock = threading.Lock()
-
+from ..utils.build_dir import build_dir, make_dir
 
 def _compile_flags() -> List[str]:
     """native/Makefile's flags: x86-64-v3 (AVX2) on x86_64, plain -O3
     elsewhere."""
     arch = ["-march=x86-64-v3"] if platform.machine() == "x86_64" else []
     return ["-O3", *arch, "-std=c++17", "-fPIC", "-Wall", "-pthread"]
+
+
+SOURCE = pathlib.Path(__file__).resolve().parent.parent / "native" / "gfalign_host.cpp"
+BUILD_DIR = build_dir("native", [os.environ.get("CXX", "g++"), *_compile_flags()])
+LIB_PATH = BUILD_DIR / "libgfalign_host.so"
+_lib: Optional[ctypes.CDLL] = None
+_load_lock = threading.Lock()
 
 
 def build(source: pathlib.Path = SOURCE, lib: pathlib.Path = LIB_PATH) -> float:
@@ -63,7 +67,7 @@ def build(source: pathlib.Path = SOURCE, lib: pathlib.Path = LIB_PATH) -> float:
     if compiler is None:
         raise RuntimeError(f"the native host runtime needs a C++ compiler: "
                            f"{name} (CXX, default g++) not found on PATH")
-    lib.parent.mkdir(parents=True, exist_ok=True)
+    make_dir(lib.parent)
     with open(lib.parent / f".{lib.name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)      # one compiler at a time; a dead holder releases it
         if fresh():                           # another process built it
@@ -182,6 +186,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64)]
     lib.search_free.restype = None
     lib.search_free.argtypes = [ctypes.c_char_p]
+    lib.gfalign_set_wait_timeout.restype = None
+    lib.gfalign_set_wait_timeout.argtypes = [ctypes.c_double]
     lib.search_profile.restype = None
     lib.search_profile.argtypes = [
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
@@ -257,6 +263,12 @@ def set_threads(n: int) -> None:
     default, the CPUs of the process's affinity mask."""
     _USER_THREADS[0] = int(n)
     _load().gfalign_set_threads(int(n))
+
+
+def set_wait_timeout(seconds: float) -> None:
+    """Bound, in seconds, on the native search driver's wait for a peer's
+    tallies in a distributed run (parallel/dist.wait_seconds)."""
+    _load().gfalign_set_wait_timeout(float(seconds))
 
 
 def user_threads() -> int:
@@ -630,12 +642,18 @@ def nw_best_scores_batch(a_keys: np.ndarray, a_len: np.ndarray,
 def native_search(adj_off, adj_nid, adj_or0, adj_or1, n_segments, budget,
                   rec_uids, rec_counts, node_count, source_uid, dest_uid,
                   b_keys, b_len, max_steps, min_nodes, return_all,
-                  spec_depth, speculate, name_blob: bytes, name_off):
-    """Run the native tangle-search driver in this process alone; returns
-    the output bytes, or None when the driver declines.  Arrays follow
-    engine/search.py's encodings (orientation codes 0/1/2; read keys
-    id*4+orient).  The C function's frontier-sharded mode (pid, nproc and
-    the shared-memory tally ring) is not bound here."""
+                  spec_depth, speculate, name_blob: bytes, name_off,
+                  pid: int = 0, nproc: int = 1, ring_buf=None,
+                  ring_width: int = 0, ring_slots: int = 0,
+                  ring_sum_mode: bool = False):
+    """Run the native tangle-search driver; returns the output bytes, or
+    None when the driver declines.  Arrays follow engine/search.py's
+    encodings (orientation codes 0/1/2; read keys id*4+orient).  For
+    nproc > 1 pass the address of parallel/dist._ShmRing's buffer (reset
+    and barriered by the caller), its width and slot count, and
+    ring_sum_mode for a read-sharded run (tallies summed) rather than a
+    frontier-sharded one.  Raises RuntimeError when a peer does not
+    publish within set_wait_timeout's bound."""
     lib = _load()
     i32 = ctypes.POINTER(ctypes.c_int32)
     i8 = ctypes.POINTER(ctypes.c_int8)
@@ -660,8 +678,13 @@ def native_search(adj_off, adj_nid, adj_or0, adj_or1, n_segments, budget,
         0, -1, -1, int(max_steps), int(min_nodes),
         1 if return_all else 0, int(spec_depth), int(speculate),
         name_blob, koff.ctypes.data_as(i64),
-        0, 1, ctypes.c_void_p(None), 0, 0, 0,
+        int(pid), int(nproc), ctypes.c_void_p(ring_buf), int(ring_width),
+        int(ring_slots), 1 if ring_sum_mode else 0,
         ctypes.byref(out_text), ctypes.byref(out_len))
+    if rc == -2:
+        msg = ctypes.string_at(out_text, out_len.value).decode()
+        lib.search_free(out_text)
+        raise RuntimeError(f"rank {pid}: native search: {msg}")
     if rc != 0:
         return None
     text = ctypes.string_at(out_text, out_len.value)

@@ -34,6 +34,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <stdexcept>
 #include <ctime>
 #include <fstream>
 #include <string>
@@ -1288,14 +1289,24 @@ static std::atomic<int64_t> g_run_ns{0};
 
 static double mono_s() { return host_mono_s(); }
 
-static void shm_wait_ge(const int64_t* cell, int64_t want) {
+// The bound on one wait for a peer (gfalign_set_wait_timeout): a peer
+// that died or never arrived must fail the search, not hold it forever.
+static std::atomic<double> g_shm_timeout_s{300.0};
+
+static void shm_wait_ge(const int64_t* cell, int64_t want, int peer = -1) {
   if (__atomic_load_n(cell, __ATOMIC_ACQUIRE) >= want) return;
   const double t0 = mono_s();
+  const double limit = g_shm_timeout_s.load(std::memory_order_relaxed);
   int spins = 0;
   while (__atomic_load_n(cell, __ATOMIC_ACQUIRE) < want) {
     if (++spins > 5000) {
       struct timespec ts = {0, 100000};  // 0.1 ms
       nanosleep(&ts, nullptr);
+      if ((spins & 1023) == 0 && mono_s() - t0 > limit)
+        throw std::runtime_error(
+            "no word from rank " + std::to_string(peer) + " within " +
+            std::to_string(limit) + " s (ring batch " +
+            std::to_string(want - 1) + ")");
     }
   }
   g_shm_wait_ns.fetch_add(static_cast<int64_t>((mono_s() - t0) * 1e9),
@@ -1335,7 +1346,7 @@ struct RingX {
   void wait_peers_drained(int64_t want) {
     for (int p = 0; p < nproc; p++) {
       if (p == pid) continue;
-      shm_wait_ge(&arr[1 + p], want);
+      shm_wait_ge(&arr[1 + p], want, p);
     }
   }
 
@@ -1434,7 +1445,7 @@ struct Driver {
       for (int p = 0; p < nproc; p++) {
         if (p == pid) continue;
         int64_t* s = ring->slot(p, j);
-        shm_wait_ge(&s[0], j + 1);
+        shm_wait_ge(&s[0], j + 1, p);
         int64_t jj = 0;
         for (size_t i = 0; i < spec.size(); i++) {
           if (static_cast<int64_t>(i % nproc) != p) continue;
@@ -1743,7 +1754,7 @@ struct Driver {
           for (int peer = 0; peer < nproc; peer++) {
             if (peer == pid) continue;
             int64_t* s = ring->slot(peer, k);
-            shm_wait_ge(&s[0], k + 1);
+            shm_wait_ge(&s[0], k + 1, peer);
             for (size_t i = 0; i < 3 * C; i++) tallies[i] += s[2 + i];
           }
           ring->mark_drained();  // sum batches drain themselves in order
@@ -1856,8 +1867,9 @@ struct Driver {
 // malloc'd into *out_text / *out_len and must be released with
 // search_free.  With nproc > 1 the speculative frontier is sharded
 // round-robin and tallies flow through the pipelined shm ring
-// (parallel/dist.make_shm_ring; the caller zeroes + barriers the ring
-// before the call).
+// (parallel/dist._ShmRing; the caller zeroes + barriers the ring
+// before the call).  Returns -2, with the message as the text, when a
+// peer did not publish within gfalign_set_wait_timeout's bound.
 int32_t search_native(
     const int32_t* adj_off, const int32_t* adj_nid, const int8_t* adj_or0,
     const int8_t* adj_or1, int32_t n_segments, const int32_t* budget,
@@ -1914,7 +1926,18 @@ int32_t search_native(
     d.sum_mode = ring_sum_mode != 0;
   }
   const double run_t0 = search_impl::mono_s();
-  d.run(source_uid);
+  try {
+    d.run(source_uid);
+  } catch (const std::exception& e) {
+    // a peer timed out (shm_wait_ge): the message goes back as the text
+    const std::string msg = e.what();
+    char* buf = static_cast<char*>(std::malloc(msg.size() + 1));
+    if (!buf) return -1;
+    std::memcpy(buf, msg.c_str(), msg.size() + 1);
+    *out_text = buf;
+    *out_len = static_cast<int64_t>(msg.size());
+    return -2;
+  }
   search_impl::g_run_ns.fetch_add(
       static_cast<int64_t>((search_impl::mono_s() - run_t0) * 1e9),
       std::memory_order_relaxed);
@@ -1928,6 +1951,10 @@ int32_t search_native(
 }
 
 void search_free(char* p) { std::free(p); }
+
+void gfalign_set_wait_timeout(double seconds) {
+  search_impl::g_shm_timeout_s.store(seconds, std::memory_order_relaxed);
+}
 
 #ifdef __AVX2__
 // int16 single-pair banded scorer: 16 lanes per vector instead of 8.

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA sources (gfalign_torch/csrc/*.cu).
 
 Each source becomes one shared library with a plain C interface, compiled
-with nvcc for sm_90a at first use into build/gfalign_torch/ and loaded with
-ctypes.  `build(stem)` compiles explicitly and returns nvcc's register and
+with nvcc for sm_90a at first use into build/gfalign_torch/ (the user's
+cache for an installed package, utils/build_dir.py), one process at a
+time under a file lock, and loaded with ctypes.  `build(stem)` compiles explicitly and returns nvcc's register and
 spill report; `start_build(stem)` starts the compiler without waiting, so
 that several sources compile side by side; `load(stem)` builds if needed
 and returns the library.  `sass_inner_loops(stem)` disassembles a built
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import functools
 import os
 import pathlib
@@ -31,8 +33,13 @@ import shutil
 import subprocess
 from typing import Dict, List, Optional, Tuple
 
+from ..utils.build_dir import build_dir, make_dir
+
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "gfalign_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-std=c++20", "-O1", "-shared", "-fPIC", "-pthread"]
+BUILD_DIR = build_dir("cuda", ["nvcc", *NVCC_FLAGS, "g++", *HOST_FLAGS])
 
 
 def source_path(stem: str) -> pathlib.Path:
@@ -60,21 +67,40 @@ def _up_to_date(stem: str) -> bool:
     return lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime
 
 
-def start_build(stem: str) -> Optional[Tuple[subprocess.Popen, pathlib.Path]]:
+def _locked(lib: pathlib.Path):
+    """An exclusive flock on `lib`'s lock file (held until the returned
+    file is closed; a dead holder releases it): one compiler a library at
+    a time across processes, such as the ranks of a distributed run
+    starting together."""
+    make_dir(lib.parent)
+    lock = open(lib.parent / f".{lib.name}.lock", "w")
+    fcntl.flock(lock, fcntl.LOCK_EX)
+    return lock
+
+
+def start_build(stem: str) -> Optional[Tuple[subprocess.Popen, pathlib.Path, object]]:
     """Start nvcc on csrc/<stem>.cu unless an up-to-date library is already
-    built; returns (process, temporary output) for `finish_build`, or None
-    when there is nothing to do."""
+    built; returns (process, temporary output, lock) for `finish_build`,
+    or None when there is nothing to do.  The library's lock is held from
+    here to `finish_build`, and freshness is checked again under it, so
+    processes starting together compile a source once."""
     if _up_to_date(stem):
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = lib_path(stem)
+    lock = _locked(lib)
+    if _up_to_date(stem):                  # another process built it
+        lock.close()
+        return None
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(source_path(stem))]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-    return proc, tmp
+    try:
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(source_path(stem))],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+    except BaseException:
+        lock.close()
+        raise
+    return proc, tmp, lock
 
 
 def finish_build(stem: str, started) -> str:
@@ -82,12 +108,13 @@ def finish_build(stem: str, started) -> str:
     -Xptxas -v report ('' when nothing was built)."""
     if started is None:
         return ""
-    proc, tmp = started
-    _, report = proc.communicate()
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {stem}.cu ({proc.returncode}):\n{report}")
-    os.replace(tmp, lib_path(stem))  # atomic: a concurrent loader never sees half a file
+    proc, tmp, lock = started
+    with lock:
+        _, report = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {stem}.cu ({proc.returncode}):\n{report}")
+        os.replace(tmp, lib_path(stem))  # atomic: a concurrent loader never sees half a file
     return report
 
 
@@ -168,19 +195,37 @@ def host_source(stem: str) -> str:
 
 def build_host(stem: str) -> pathlib.Path:
     """Build csrc/<stem>.cu for the CPU (see the module docstring) into
-    build/gfalign_torch/host/ and return the library's path.  Raises
-    RuntimeError when there is no g++ or the compile fails."""
-    compiler = shutil.which("g++")
+    build/gfalign_torch/host/ and return the library's path; a library at
+    least as new as the source, the shim and this file is reused.  The
+    compile runs under the library's lock with freshness checked again
+    inside it, so processes asking together compile once.  Raises
+    RuntimeError when there is no C++ compiler (CXX, default g++) or the
+    compile fails."""
+    name = os.environ.get("CXX", "g++")
+    compiler = shutil.which(name)
     if compiler is None:
-        raise RuntimeError("g++ not found")
-    out_dir = BUILD_DIR / "host"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cpp = out_dir / f"{stem}.{os.getpid()}.cpp"
-    lib = out_dir / f"lib{stem}_host.{os.getpid()}.so"
-    cpp.write_text(host_source(stem))
-    done = subprocess.run([compiler, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                           "-I", str(_CSRC / "host_shim"), "-o", str(lib), str(cpp)],
-                          capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"g++ failed on {stem}.cu ({done.returncode}):\n{done.stderr}")
+        raise RuntimeError(f"{name} not found")
+    lib = BUILD_DIR / "host" / f"lib{stem}_host.so"
+    deps = [source_path(stem), pathlib.Path(__file__), *(_CSRC / "host_shim").glob("*.h")]
+
+    def fresh() -> bool:
+        return lib.exists() and lib.stat().st_mtime >= max(d.stat().st_mtime for d in deps)
+
+    if fresh():
+        return lib
+    with _locked(lib):
+        if fresh():
+            return lib
+        cpp = lib.with_name(f"{stem}.{os.getpid()}.cpp")
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cpp.write_text(host_source(stem))
+        try:
+            done = subprocess.run([compiler, *HOST_FLAGS, "-I", str(_CSRC / "host_shim"),
+                                   "-o", str(tmp), str(cpp)], capture_output=True, text=True)
+        finally:
+            cpp.unlink(missing_ok=True)
+        if done.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{name} failed on {stem}.cu ({done.returncode}):\n{done.stderr}")
+        os.replace(tmp, lib)
     return lib

@@ -21,6 +21,11 @@ class Log:
             elapsed = time.monotonic() - self.start
             print(f"[{elapsed:.2f}s] {msg}", file=sys.stderr)
 
+    def info(self, msg: str) -> None:
+        """Always-on stderr note about how a run is set up."""
+        elapsed = time.monotonic() - self.start
+        print(f"[{elapsed:.2f}s] {msg}", file=sys.stderr)
+
     def warn(self, msg: str) -> None:
         """Always-on stderr warning (stdout byte-parity is never touched)."""
         elapsed = time.monotonic() - self.start

@@ -152,9 +152,12 @@ def test_synth_matches_jax(kw, tmp_path):
 
 
 def test_align_mode_is_not_ported(workload, capsys, monkeypatch):
-    """What of align mode is still not ported: a distributed align raises.
-    The mode itself runs: without reads it falls through into evalGFA, as
-    in the JAX package, and exits 0."""
+    """The name is from the slices before align was wholly ported, kept so
+    the test's history stays in one place; it now checks that nothing of
+    align mode is left unported.  Without reads it falls through into
+    evalGFA, as in the JAX package, and exits 0; a distributed align
+    (tests/test_torch_dist.py) refuses a shard that is not this process's
+    place in the process group."""
     _, paths = workload
     assert torch_main(["align", "-f", paths["gfa"]], device="cpu") == 0
     assert "not yet ported" not in capsys.readouterr().err
@@ -163,17 +166,28 @@ def test_align_mode_is_not_ported(workload, capsys, monkeypatch):
 
     reads = pathlib.Path(paths["gfa"]).with_name("one.fa")
     reads.write_text(">r\nACGTACGTACGTACGTACGTACGT\n")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(RuntimeError, match="process group"):
         run_graph_aligner(read_gfa(paths["gfa"]), [str(reads)], "", shard=(0, 2),
                           device="cpu")
 
 
-def test_distributed_mode_is_a_later_slice(workload, monkeypatch):
+def test_distributed_mode_is_a_later_slice(workload, tmp_path, monkeypatch):
+    """The name is from the slices before distribution was ported, kept so
+    the test's history stays in one place; it now checks that the
+    distributed mode no longer raises (tests/test_torch_dist.py runs it
+    with several processes): with GFALIGN_TORCH_DISTRIBUTED set but no
+    torchrun environment, a run is one process and prints what it prints
+    without the variable."""
     wl, paths = workload
+    argv = ["evalPath", "-f", paths["gfa"], "-g", paths["gaf"], "-p", wl.true_path]
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    (tmp_path / "one").mkdir()
+    (tmp_path / "dist").mkdir()
+    want = run_cli(torch_main, argv, tmp_path / "one", device="cpu")
     monkeypatch.setenv("GFALIGN_TORCH_DISTRIBUTED", "1")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        torch_main(["evalPath", "-f", paths["gfa"], "-g", paths["gaf"],
-                    "-p", wl.true_path], device="cpu")
+    got = run_cli(torch_main, argv, tmp_path / "dist", device="cpu")
+    assert got == want and want[0] == 0 and want[1]
 
 
 def test_threads_flag_sizes_the_native_runtime(workload, tmp_path, monkeypatch):

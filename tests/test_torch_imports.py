@@ -52,6 +52,13 @@ def test_align_modules_are_scanned():
         assert name in SOURCES, name
 
 
+def test_distribution_modules_are_scanned():
+    for name in ("gfalign_torch/parallel/dist.py", "gfalign_torch/engine/evaluate.py",
+                 "gfalign_torch/engine/search.py", "gfalign_torch/cli/main.py",
+                 "gfalign_torch/utils/build_dir.py", "gfalign_torch/bench_search.py"):
+        assert name in SOURCES, name
+
+
 def test_every_module_imports_with_jax_blocked():
     modules = [s[:-3].replace("/", ".").removesuffix(".__init__")
                for s in SOURCES if s.startswith("gfalign_torch/")]
