@@ -74,6 +74,24 @@ Phases (each prints a line; any failure raises and exits non-zero):
      post-filter reads (golden md5, K1 launched on each rank: the CLI's
      default driver on CUDA).  A rank that exits non-zero or differs fails the
      script; past the deadline every rank is killed and the script fails.
+ 12. the host ladder: `align -p hifi` with GFALIGN_TORCH_ALIGN_ENGINE=host
+     (the native host scoring ladder, the JAX package's default engine) on
+     phase 9's seeded run (all 10,000 reads) and band-edge run, each GAF
+     equal to tests/data/torch_slice_align_host_seed0.md5 (made by that
+     engine), no K3 launched; its scoring seconds, rungs, pairs and banded
+     cells beside phase 9's device ladder on the same reads, with both
+     runs' stage seconds and traceback counts;
+ 13. the trace: the CLI `search` on the post-filter reads (R = 249) without
+     and with GFALIGN_TORCH_TRACE (torch.profiler, CPU and CUDA activity):
+     both outputs golden-equal, the Chrome trace parses, and its
+     nw_fwd_packed kernel events equal the K1 launches counted over the
+     traced run; walls with and without the trace;
+ 14. the dry run: gfalign_torch.dryrun.dryrun_multichip(4) with every rank
+     on cuda:0: the two-axis scoring step on the (2, 2) grid (the example
+     batch and the full-scale search's largest frontier) equal to
+     local_step, the full-scale search frontier-sharded on four ranks and
+     the align of 2,000 reads on four ranks, each byte-equal to one
+     process; every rank must launch K1, and every align rank K3.
 
 A kernel's bound is its useful DP cells times its integer-ALU operations
 per cell (OPS_PER_CELL) over the card's int32 ALU rate, or its bytes over
@@ -81,7 +99,8 @@ HBM bandwidth if larger.  For K3-K5 the cells are those of the rows up to
 each read's last non-PAD char (the kernels skip the rest).
 
 `python3 chip_smoke.py --dist` runs phases 1, 2 and 11 only (no result
-line); `python3 chip_smoke.py --nw` stops after phase 4 (build, K1 and K2 against
+line), and `--host-ladder`, `--trace` and `--dryrun` phases 1, 2 and 12,
+13 or 14 alone (no result line either); `python3 chip_smoke.py --nw` stops after phase 4 (build, K1 and K2 against
 their plain versions: under a minute) and prints no result line;
 `python3 chip_smoke.py --sa` runs phases 1, 2 and 8 only (build, K3-K5
 against their plain versions and at the synthesised phase-10 shapes: about
@@ -954,8 +973,9 @@ class AlignRecorder:
         return sum(s.elapsed_time(e) for s, e in self.events)
 
 
-def run_align(name, runs, golden, workdir):
-    """One `align` run through the CLI on CUDA against its golden GAF."""
+def run_align(name, runs, golden, workdir, tag="device"):
+    """One `align` run through the CLI on CUDA against its golden GAF (the
+    ladder is GFALIGN_TORCH_ALIGN_ENGINE's; `tag` names the output)."""
     import torch
 
     from gfalign_torch.cli.main import main
@@ -967,7 +987,7 @@ def run_align(name, runs, golden, workdir):
         key = pathlib.Path(path).name
         if digest(pathlib.Path(path).read_bytes()) != golden[key]:
             raise RuntimeError(f"{key} differs from the recorded input")
-    out_gaf = pathlib.Path(workdir) / f"{name}.out.gaf"
+    out_gaf = pathlib.Path(workdir) / f"{name}.{tag}.gaf"
     for k in seqalign_cuda.LAUNCHES:
         seqalign_cuda.LAUNCHES[k] = 0
     for k in graph_align.PHASE_SECONDS:
@@ -994,7 +1014,7 @@ def run_align(name, runs, golden, workdir):
     if got != golden[f"{name}.gaf"]:
         keep = ROOT / "chiprun_out"
         keep.mkdir(exist_ok=True)
-        (keep / f"{name}.out.gaf").write_bytes(out_gaf.read_bytes())
+        (keep / out_gaf.name).write_bytes(out_gaf.read_bytes())
         raise RuntimeError(f"align ({name}) GAF {got} differs from the golden "
                            f"{golden[name + '.gaf']} (kept in chiprun_out/)")
     n_reads = golden[pathlib.Path(reads).name][1] // 2
@@ -1080,6 +1100,141 @@ def phase_seqalign_main_shapes(recs):
         f"{res['plain_ms']:.1f} ms (timed on {res['plain_pairs']} reads, scaled), "
         f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 12-14: the host ladder, the trace, the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_RANKS = 4
+
+
+def ensure_align_inputs(workdir, wl, phase):
+    """The align workloads of phase 9, {name: (gfa, reads, preset)}: those
+    phase 9 wrote, or written here when it did not run (run_align checks
+    each input's md5)."""
+    from tests.test_torch_goldens import port_align_workloads
+
+    d = pathlib.Path(workdir) / "align"
+    if (d / "seeded.fa").exists():
+        return {name: (str(d / f"{name}.gfa"), str(d / f"{name}.fa"), "hifi")
+                for name in ("seeded", "band_edge", "exhaustive")}
+    t0 = time.time()
+    runs = port_align_workloads(wl, d)
+    log(f"phase {phase} inputs: align workloads written in {time.time() - t0:.1f} s")
+    return runs
+
+
+def phase_host_ladder(workdir, wl, device_runs=None):
+    """Phase 12: `align -p hifi` with GFALIGN_TORCH_ALIGN_ENGINE=host (the
+    native host ladder, the JAX package's default engine) over the seeded
+    run's 10,000 reads and the band-edge run, each GAF against the host
+    golden, beside phase 9's device ladder (K3) on the same reads."""
+    import os
+
+    from gfalign_torch.engine import graph_align
+    from tests.test_torch_goldens import ALIGN_HOST_RUNS
+
+    runs = ensure_align_inputs(workdir, wl, 12)
+    golden = read_goldens("torch_slice_align_host_seed0.md5")
+    out = {}
+    os.environ["GFALIGN_TORCH_ALIGN_ENGINE"] = "host"
+    try:
+        for name in ALIGN_HOST_RUNS:
+            for k in graph_align.HOST_LADDER:
+                graph_align.HOST_LADDER[k] = 0
+            res, _ = run_align(name, runs, golden, workdir, tag="host")
+            res["host_ladder"] = dict(graph_align.HOST_LADDER)
+            out[name] = res
+            if res["launches"]["banded"] or not res["host_ladder"]["rungs"]:
+                raise RuntimeError(f"host-engine align ({name}) launched K3 "
+                                   f"{res['launches']['banded']} times over "
+                                   f"{res['host_ladder']['rungs']} host rungs")
+    finally:
+        del os.environ["GFALIGN_TORCH_ALIGN_ENGINE"]
+    for name, res in out.items():
+        ph, hl = res["phase_seconds"], res["host_ladder"]
+        rate = hl["cells"] / ph["scoring"] / 1e9 if ph["scoring"] else 0.0
+        log(f"phase 12 align {name}, host ladder: golden md5 and {res['records']} "
+            f"records, {res['reads']} reads in {res['seconds']:.2f} s; seeding + "
+            f"candidates {ph['seeding']:.2f} s, scoring {ph['scoring']:.2f} s "
+            f"({hl['rungs']} rungs, {hl['pairs']} pairs, {hl['cells'] / 1e9:.2f} G banded "
+            f"cells, {rate:.2f} Gcell/s), tracebacks {ph['traceback']:.2f} s; "
+            f"launches {res['launches']}; tracebacks {res['tracebacks']}")
+        dev = (device_runs or {}).get(name)
+        if dev:
+            dph = dev["phase_seconds"]
+            log(f"phase 12 align {name}, device ladder (phase 9, same reads): "
+                f"{dev['seconds']:.2f} s; seeding + candidates {dph['seeding']:.2f} s, "
+                f"scoring {dph['scoring']:.2f} s (K3 launches {dev['launches']['banded']}, "
+                f"K4 {dev['launches']['pairs']}), tracebacks {dph['traceback']:.2f} s; "
+                f"tracebacks {dev['tracebacks']}")
+    return out
+
+
+def phase_trace(workdir, wl, paths=None):
+    """Phase 13: the CLI search on the post-filter reads (R = 249) without
+    and then with GFALIGN_TORCH_TRACE: both outputs golden-equal, the trace
+    parses as JSON, and its nw_fwd_packed kernel events are exactly the K1
+    launches the wrapper counted over the traced run."""
+    import os
+
+    work = pathlib.Path(workdir)
+    if paths is None:
+        paths = write_inputs(workdir, wl, phase="13")
+    filtered = work / "filtered.gaf"
+    if not filtered.exists():
+        write_filtered(work, wl, paths)
+    golden = read_goldens()["search_filtered.out"]
+    argv = ["search", "-f", paths["gfa"], "-g", str(filtered), "-n",
+            paths["search_nodelist"], "-s", "498", "-d", "503"]
+    plain, plain_s, plain_launches = run_main(argv)
+    trace_dir = work / "trace"
+    os.environ["GFALIGN_TORCH_TRACE"] = str(trace_dir)
+    try:
+        traced, traced_s, launches = run_main(argv)
+    finally:
+        del os.environ["GFALIGN_TORCH_TRACE"]
+    for what, out in (("untraced", plain), ("traced", traced)):
+        if digest(out) != golden:
+            raise RuntimeError(f"phase 13 {what} search differs from the golden")
+    path = trace_dir / f"gfalign_torch.{os.getpid()}.json"
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "nw_fwd_packed" in e.get("name", "")]
+    if len(k1) != launches["packed"] or not k1:
+        raise RuntimeError(f"phase 13: the trace holds {len(k1)} nw_fwd_packed events, "
+                           f"the K1 counter {launches['packed']}")
+    busy_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+    res = dict(untraced_s=plain_s, traced_s=traced_s, k1_launches=launches["packed"],
+               untraced_k1_launches=plain_launches["packed"], k1_events=len(k1),
+               k1_ms=sum(e.get("dur", 0) for e in k1) / 1e3, kernel_events=len(kernels),
+               kernel_ms=busy_ms, events=len(events), trace_mb=path.stat().st_size / 2**20)
+    log(f"phase 13 traced CLI search on the post-filter reads: golden-equal with and "
+        f"without the trace, {plain_s:.2f} s untraced, {traced_s:.2f} s traced; trace "
+        f"{res['trace_mb']:.1f} MiB, {len(events)} events, {len(kernels)} kernels "
+        f"({busy_ms:.1f} ms, idle share {1 - busy_ms / 1e3 / traced_s:.4f}); "
+        f"nw_fwd_packed events {len(k1)} = K1 launches {launches['packed']} "
+        f"({res['k1_ms']:.1f} ms)")
+    return res
+
+
+def phase_dryrun():
+    """Phase 14: gfalign_torch.dryrun.dryrun_multichip(DRYRUN_RANKS) on the
+    card: every rank on cuda:0, the two-axis step on the default grid, the
+    frontier-sharded full-scale search on every rank and the align on
+    min(DRYRUN_RANKS, 4) ranks, each against one process (the dry run
+    raises on any difference, and on a rank that launched no K1, or no K3
+    in the align)."""
+    from gfalign_torch.dryrun import dryrun_multichip
+
+    res = dryrun_multichip(DRYRUN_RANKS)
+    log(f"phase 14 dryrun_multichip({DRYRUN_RANKS}) passed in {res['seconds']:.1f} s: "
+        f"grid {res['grid']}, search ranks on "
+        f"{sorted({r['device'] for r in res['search_ranks']})}, K1 launches "
+        f"{[r['search_k1'] for r in res['search_ranks']]}, align K3 launches "
+        f"{[r['align_launches']['banded'] for r in res['align_ranks']]}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1342,6 +1497,8 @@ def main(only: str = "") -> int:
     sys.path.insert(0, str(ROOT))
     import gfalign_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    from gfalign_torch import synth
+
     t_start = time.time()
     smi, name = phase_card()
     build_s, sass = phase_build()
@@ -1354,15 +1511,19 @@ def main(only: str = "") -> int:
         log(f"phases 1, 2 and 8 passed in {time.time() - t_start:.1f} s (--sa: "
             f"the other phases were not run, so no result line is printed)")
         return 0
-    if only == "dist":
-        from gfalign_torch import synth
-
+    # the phases that also run alone, after phases 1 and 2
+    alone = {"dist": (11, lambda work: phase_distributed(work, synth.make_workload(seed=0))),
+             "host-ladder": (12, lambda work: phase_host_ladder(work, synth.make_workload(seed=0))),
+             "trace": (13, lambda work: phase_trace(work, synth.make_workload(seed=0))),
+             "dryrun": (14, lambda work: phase_dryrun())}
+    if only in alone:
+        phase, run = alone[only]
         with tempfile.TemporaryDirectory() as workdir:
-            distributed = phase_distributed(workdir, synth.make_workload(seed=0))
-        dump_details(dict(card=smi, device=name, build_s=build_s, distributed=distributed),
-                     "chip_smoke_dist.json")
-        log(f"phases 1, 2 and 11 passed in {time.time() - t_start:.1f} s on {smi} (--dist: "
-            f"the other phases were not run, so no result line is printed)")
+            res = run(workdir)
+        dump_details(dict(card=smi, device=name, build_s=build_s, **{only: res}),
+                     f"chip_smoke_{only}.json")
+        log(f"phases 1, 2 and {phase} passed in {time.time() - t_start:.1f} s on {smi} "
+            f"(--{only}: the other phases were not run, so no result line is printed)")
         return 0
     k1_bench = phase_k1_bench(gen)
     k2_check = phase_k2(gen)
@@ -1373,8 +1534,6 @@ def main(only: str = "") -> int:
         log(f"phases 1-4 passed in {time.time() - t_start:.1f} s (--nw: the "
             f"other phases were not run, so no result line is printed)")
         return 0
-    from gfalign_torch import synth
-
     wl = synth.make_workload(seed=0)
     with tempfile.TemporaryDirectory() as workdir:
         search, evalpath, largest, search_argv, paths = phase_end_to_end(workdir, wl)
@@ -1387,6 +1546,9 @@ def main(only: str = "") -> int:
         align, recs = phase_align(workdir, wl)
         sa_main = phase_seqalign_main_shapes(recs)
         distributed = phase_distributed(workdir, wl, paths, align["seeded"]["seconds"])
+        host_ladder = phase_host_ladder(workdir, wl, align)
+        trace = phase_trace(workdir, wl, paths)
+    dryrun = phase_dryrun()
 
     launches = {"packed": search["launches"]["packed"] + evalpath["launches"]["packed"],
                 "split": long_paths["launches"]["split"],
@@ -1410,6 +1572,7 @@ def main(only: str = "") -> int:
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
                    seqalign_ragged=sa_ragged, seqalign_synthetic=sa_synthetic,
                    align=align, seqalign_main=sa_main, distributed=distributed,
+                   host_ladder=host_ladder, trace=trace, dryrun=dryrun,
                    ops_per_cell=OPS_PER_CELL, seconds=time.time() - t_start)
     dump_details(details, "chip_smoke.json")
     log(f"all phases passed in {details['seconds']:.1f} s on {smi}")
@@ -1422,6 +1585,8 @@ def main(only: str = "") -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":   # phase 11's ranks
         raise SystemExit(rank_worker(sys.argv[2]))
-    if sys.argv[1:] not in ([], ["--nw"], ["--sa"], ["--dist"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--nw | --sa | --dist]")
+    if sys.argv[1:] not in ([], ["--nw"], ["--sa"], ["--dist"], ["--host-ladder"],
+                            ["--trace"], ["--dryrun"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--nw | --sa | --dist | "
+                         "--host-ladder | --trace | --dryrun]")
     raise SystemExit(main(only=sys.argv[1][2:] if sys.argv[1:] else ""))

@@ -15,8 +15,13 @@ ops       NW path scoring and Smith-Waterman read scoring: plain PyTorch
           versions and the CUDA kernels
 engine    align (seeding, graph aligner), search, evalPath, evalGFA,
           alignment-set operations
-parallel  the frontier scoring step; a single-process distribution stub
-cli       drop-in command-line surface mirroring the reference's flags
+parallel  the frontier scoring step and its two-axis form over ranks
+          (mesh), multi-process distribution on torch.distributed
+cli       drop-in command-line surface mirroring the reference's flags,
+          the .tst validator and test generator
+utils     logging, number formatting, build directories, torch.profiler
+          traces (GFALIGN_TORCH_TRACE)
+dryrun    the driver entry points: entry() and dryrun_multichip(n)
 """
 
 __version__ = "0.1.0"

@@ -286,7 +286,7 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "gfalign_torch scores on CUDA and no CUDA device is available; "
             "pass device='cpu' (GFALIGN_TORCH_DEVICE=cpu for "
-            "`python -m gfalign_torch`) to run on the CPU")
+            "`python -m gfalign_torch` and the scripts) to run on the CPU")
     return dev
 
 
@@ -297,6 +297,7 @@ def run(ui: UserInput, device: torch.device) -> int:
     from ..graph.stats import report_stats
     from ..io.gfa import read_gfa
     from ..utils.log import lg
+    from ..utils.profiling import maybe_trace
 
     out = sys.stdout
     # multi-process mode: GFALIGN_TORCH_DISTRIBUTED=1 -> gloo process
@@ -338,7 +339,10 @@ def run(ui: UserInput, device: torch.device) -> int:
         lg.verbose(f"Alignment: {ui.in_align}")
         alignments.load(ui.in_align, ui.terminal_alignments_flag, shard=shard,
                         shard_by="qname")
-    return _run_mode(ui, graph, alignments, out, device, shard)
+    # GFALIGN_TORCH_TRACE=<dir>: the mode under torch.profiler, one Chrome
+    # trace a process (utils/profiling.py)
+    with maybe_trace(device):
+        return _run_mode(ui, graph, alignments, out, device, shard)
 
 
 def _distributes(ui: UserInput) -> bool:
@@ -443,12 +447,18 @@ def _read_nodelist(node_file: str) -> List[str]:
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
-    """Run one CLI invocation; `device` None means CUDA."""
+    """Run one CLI invocation (the `gfalign-torch` script, `python -m
+    gfalign_torch`); `device` None means GFALIGN_TORCH_DEVICE, and CUDA
+    when that is unset."""
+    import os
+
     from ..utils.fmt import cout
     cout.reset()  # fresh process state when called in-process (tests)
     args = list(sys.argv[1:] if argv is None else argv)
     ui = parse_args(args)
     ui.cmd_echo = [sys.argv[0] if argv is None else "gfalign"] + args
+    if device is None:
+        device = os.environ.get("GFALIGN_TORCH_DEVICE") or None
     return run(ui, resolve_device(device))
 
 

@@ -55,8 +55,8 @@ def _dup_stats_walk(qnames: Sequence[str], cols: np.ndarray,
     Returns (primary, secondary, supplementary, terminal_supplementary)
     and, with collect_pairs, also the terminal pairs' walk indices in
     emission order.  Equality with the scalar reference walk
-    (the JAX package's _dup_stats_oracle) is fuzz-tested there
-    (tests/test_dist.py)."""
+    (`_dup_stats_oracle` below) is fuzz-tested in
+    tests/test_torch_oracles.py."""
     n = len(qnames)
     empty = (0, 0, 0, 0)
     if n == 0:
@@ -109,6 +109,43 @@ def _dup_stats_walk(qnames: Sequence[str], cols: np.ndarray,
         terminal = int(ok.sum())
         if collect_pairs:
             pairs = list(zip(g0[ok].tolist(), g1[ok].tolist()))
+    counters = (primary, secondary, supplementary, terminal)
+    return (counters + (pairs,)) if collect_pairs else counters
+
+
+def _dup_stats_oracle(qnames: Sequence[str], cols: np.ndarray,
+                      collect_pairs: bool = False):
+    """Scalar reference transcription of markDuplicates+countSupplementary
+    (src/alignments.cpp:304-351) over bare metadata: the fuzz oracle for
+    the vectorized _dup_stats_walk."""
+    primary = secondary = supplementary = terminal = 0
+    pairs: List[Tuple[int, int]] = []
+    scratch: List[int] = []
+    prev: Optional[str] = None
+    n = len(qnames)
+    for i in range(n):
+        scratch.append(i)
+        name = qnames[i]
+        if name == prev:
+            secondary += 1
+            if i + 1 == n or qnames[i + 1] != name:
+                group = sorted(scratch, key=lambda j: cols[j, 0])
+                pos = 0
+                count = 0
+                for j in group:
+                    if pos != 0 and cols[j, 0] > pos:
+                        supplementary += 1
+                        count += 1
+                    pos = cols[j, 1]
+                if len(group) == 2 and count == 1:
+                    if (cols[group[0], 4] >= ((cols[group[0], 2] - 500) % _U32)
+                            and cols[group[1], 3] <= 500):
+                        terminal += 1
+                        pairs.append((group[0], group[1]))
+                scratch = []
+        else:
+            primary += 1
+            prev = name
     counters = (primary, secondary, supplementary, terminal)
     return (counters + (pairs,)) if collect_pairs else counters
 

@@ -18,7 +18,7 @@ uploads only its candidates.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Union
+from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -94,6 +94,21 @@ class ReadBatch:
             self._device = (torch.from_numpy(b_keys).to(self.device),
                             torch.from_numpy(b_len).to(self.device))
         return self._device
+
+    def filter_against(self, candidate_ids: set) -> Tuple[np.ndarray, int]:
+        """(keep mask, unaligned count) over the batch's reads, on the host
+        (reference src/eval.cpp:81-91): a read is kept when every one of its
+        steps lies on a node of `candidate_ids`, and each step that does not
+        counts as unaligned.  The oracle of the device membership filter
+        (parallel/score_step._offending_steps)."""
+        if self.R == 0:
+            return np.zeros(0, bool), 0
+        valid = self.b_keys >= 0
+        ids = np.where(valid, self.b_keys.astype(np.int64) >> 2, -1)
+        member = np.isin(ids, np.fromiter(candidate_ids, dtype=np.int64,
+                                          count=len(candidate_ids)))
+        off_counts = (valid & ~member).sum(axis=1)
+        return off_counts == 0, int(off_counts.sum())
 
     def prepared(self):
         """The reads as the frontier step wants them
@@ -287,6 +302,12 @@ def _alignment_string(a: List[Step], b: List[Step], id_to_name) -> str:
         else:
             parts.append("." * (len(id_to_name(sb.id)) + 1) + ",")
     return "".join(parts)
+
+
+def filter_mask(candidate: Sequence[Step],
+                read_paths: Sequence[Sequence[Step]]) -> Tuple[np.ndarray, int]:
+    """ReadBatch.filter_against for one candidate's node ids."""
+    return _as_batch(read_paths, "cpu").filter_against({s[0] for s in candidate})
 
 
 def distributed_evaluator(base=evaluate_candidates):

@@ -4,8 +4,10 @@ The reference shells out to GraphAligner (src/main.cpp:167-169); this engine
 is the framework's own pipeline with GraphAligner-compatible GAF output
 (column contract + NM/AS/dv/id/cg tags).  PyTorch port of
 gfalign_tpu/engine/graph_align.py: scoring runs on `device` (the CUDA
-kernels of ops/seqalign_cuda.py, or their plain versions on the CPU), and
-there is one scoring ladder, the device ladder.
+kernels of ops/seqalign_cuda.py, or their plain versions on the CPU).
+The seeded engine has two scoring ladders (`align_engine`): the device
+ladder (the default) and the native host ladder of the JAX package's
+default engine (GFALIGN_TORCH_ALIGN_ENGINE=host).
 
 Pipeline:
   1. enumerate oriented simple paths through the graph (both orientations;
@@ -48,6 +50,13 @@ MIN_SCORE = 20          # reject spurious local hits (hifi preset)
 # scoring (inside score_pairs: dispatch and the fetch that waits for the
 # device) and traceback.
 PHASE_SECONDS = {"seeding": 0.0, "scoring": 0.0, "traceback": 0.0}
+
+# The host ladder's native calls since a caller last zeroed them: rungs
+# (seq_banded_pairs calls), pairs scored and banded DP cells (read length
+# times band width, summed over the pairs of every rung).
+HOST_LADDER = {"rungs": 0, "pairs": 0, "cells": 0}
+
+ENGINES = ("device", "host")
 
 
 @contextlib.contextmanager
@@ -647,6 +656,21 @@ class DevicePools:
         self._pending = []
 
 
+def align_engine() -> str:
+    """The seeded engine's scoring ladder, from GFALIGN_TORCH_ALIGN_ENGINE:
+    "device" (the default) scores on the run's device (K3, K4 on CUDA),
+    "host" on the native host ladder (`seq_banded_pairs`, the JAX
+    package's default engine), which prints that engine's bytes where the
+    two ladders disagree.  Any other value raises."""
+    import os
+
+    name = os.environ.get("GFALIGN_TORCH_ALIGN_ENGINE") or "device"
+    if name not in ENGINES:
+        raise ValueError(f"GFALIGN_TORCH_ALIGN_ENGINE={name!r}: the align "
+                         f"engine is one of {', '.join(ENGINES)}")
+    return name
+
+
 def align_reads(graph: Graph, reads: Sequence[Tuple[str, str]],
                 min_score: int = MIN_SCORE,
                 params: Optional[AlignParams] = None,
@@ -658,21 +682,23 @@ def align_reads(graph: Graph, reads: Sequence[Tuple[str, str]],
     `params` carries the preset-tunable surface (AlignParams); when given
     it supersedes `min_score`.  Scoring runs on `device`."""
     device = torch.device(device)
+    engine = align_engine()
     if params is None:
         params = AlignParams(min_score=min_score)
     if graph.n_segments > SEED_THRESHOLD:
-        return _align_seeded(graph, reads, params, device)
+        return _align_seeded(graph, reads, params, device, engine)
     audit = CapAudit()
     paths = enumerate_paths(graph, audit=audit)
     audit.report("align(exhaustive)")
     return _align_with_paths(graph, reads, paths, params.min_score, device)
 
 
-def _align_seeded(graph: Graph, reads, params: AlignParams, device):
+def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str):
     min_score = params.min_score
     """Seeded mode scores (read, candidate-path) PAIRS, not the read x path
     cross product: each read's anchors nominate a handful of paths, so the
-    work is O(sum of candidates) with pow2 shape buckets."""
+    work is O(sum of candidates) with pow2 shape buckets.  `engine` picks
+    the scoring ladder (align_engine)."""
     from collections import defaultdict
 
     from ..ops.nw_path import pad_pow2
@@ -803,14 +829,58 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device):
                            params.max_paths_per_anchor, read_audits[r])
             for r, (_, seq) in enumerate(reads)]
 
-    # working read codes: placement-round masking (work[r][a:b] = PAD)
-    # writes into these arrays, and the device pool re-uploads masked rows
-    work = [np.array(encode_seq(seq), dtype=np.int8) for _, seq in reads]
+    # working read codes, views into one contiguous blob: the host ladder
+    # ships (blob, offsets, lengths) without a copy, placement-round
+    # masking (work[r][a:b] = PAD) writes straight into the blob, and the
+    # device pools re-upload masked rows from the same views; nothing may
+    # rebind work[r]
+    _work_arrays = [np.asarray(encode_seq(seq), dtype=np.int8)
+                    for _, seq in reads]
+    read_blob = (np.concatenate(_work_arrays) if _work_arrays
+                 else np.zeros(1, np.int8))
+    read_len = np.fromiter(map(len, _work_arrays), np.int64,
+                           count=len(_work_arrays))
+    read_off = np.zeros(len(_work_arrays), np.int64)
+    if len(_work_arrays) > 1:
+        np.cumsum(read_len[:-1], out=read_off[1:])
+    work = [read_blob[read_off[r]:read_off[r] + read_len[r]]
+            for r in range(len(reads))]
+    # path codes accumulate into one blob keyed by candidate; the host
+    # ladder passes absolute offsets into it.  Its capacity is sized once
+    # from the whole candidate set at first use (path_cache holds every
+    # generated candidate by then), so it is not regrown round by round
+    _pblob = {"buf": None, "used": 0}
+    _poff: Dict[tuple, int] = {}
+
+    def blob_off_of(key: tuple) -> int:
+        off = _poff.get(key)
+        if off is None:
+            codes = codes_of(key)
+            need = _pblob["used"] + len(codes)
+            buf = _pblob["buf"]
+            if buf is None or need > len(buf):
+                cap = max(need,
+                          sum(len(op) for op in path_cache.values()) + 1024)
+                new = np.empty(cap, np.int8)
+                if buf is not None:
+                    new[:_pblob["used"]] = buf[:_pblob["used"]]
+                _pblob["buf"] = buf = new
+            buf[_pblob["used"]:need] = codes
+            off = _pblob["used"]
+            _poff[key] = off
+            _pblob["used"] = need
+        return off
 
     all_hits: List[List[GafHit]] = [[] for _ in reads]
     accepted: List[List[Tuple[int, int]]] = [[] for _ in reads]
     active = [r for r in range(len(reads)) if cand_lists[r]]
-    pools = DevicePools(work, graph, device)
+    host_engine = engine == "host"
+    if host_engine:
+        from ..io import native
+
+        if not native.available():     # raises itself when it cannot build
+            raise RuntimeError("the host align engine needs the native library")
+    pools = None if host_engine else DevicePools(work, graph, device)
     dirty_reads: set = set()   # rows masked since the last pool sync
 
     def score_pairs_full(pairs):
@@ -847,16 +917,103 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device):
     BAND = params.band
     WIDE_BAND = params.wide_band
 
+    def score_pairs_host(pairs, deltas):
+        """The native host banded ladder (the JAX package's default
+        engine): its own rungs and accept rules, every result carrying its
+        band width so the banded traceback runs at that width.  Its
+        terminal rung is a 4 x WIDE_BAND band: a placement needing more
+        drift than that around its anchor diagonal is effectively
+        unplaceable by this candidate."""
+        from ..io import native
+
+        # read codes ship as the shared blob (masking writes into it);
+        # path codes as absolute offsets into the path blob
+        ukeys: Dict[tuple, int] = {}
+        off_list: List[int] = []
+        len_list: List[int] = []
+        for _, key in pairs:
+            if key not in ukeys:
+                ukeys[key] = len(ukeys)
+                off_list.append(blob_off_of(key))
+                len_list.append(len(path_cache[key]))
+        path_blob = _pblob["buf"]
+        path_off = np.asarray(off_list, np.int64)
+        path_len = np.asarray(len_list, np.int64)
+        rid = np.fromiter((r for r, _ in pairs), np.int32, count=len(pairs))
+        pidn = np.fromiter((ukeys[k] for _, k in pairs), np.int32,
+                           count=len(pairs))
+        dl = np.asarray(deltas, np.int32)
+        results: Dict[int, Tuple[int, int, int, int]] = {}
+
+        def rung(idx_list, width, keep_low=False, keep_edge=False):
+            idx = np.asarray(idx_list, np.int32)
+            HOST_LADDER["rungs"] += 1
+            HOST_LADDER["pairs"] += len(idx)
+            HOST_LADDER["cells"] += int(read_len[rid[idx]].sum()) * width
+            best, bi, bj, edge = native.seq_banded_pairs(
+                read_blob, read_off, read_len, path_blob, path_off,
+                path_len, rid[idx], pidn[idx], dl[idx], width,
+                seqalign.MATCH, seqalign.MISMATCH, seqalign.GAP,
+                seqalign.PAD, seqalign._BLOCK)
+            redo_edge, redo_low = [], []
+            for slot, n in enumerate(idx_list):
+                if edge[slot] and not keep_edge:
+                    redo_edge.append(n)
+                elif best[slot] < min_score and not keep_low:
+                    redo_low.append(n)
+                else:
+                    results[n] = (int(best[slot]), int(bi[slot]),
+                                  int(bj[slot]), width)
+            return redo_edge, redo_low
+
+        # the first rung is sized to the read: indel drift grows about
+        # linearly with read length, so a BAND/2 half-width is too narrow
+        # past (BAND/2)/0.02 bases.  Short reads: BAND, then WIDE_BAND for
+        # edges and lows (lows kept there); only band-edge hits go on.
+        cut = (BAND // 2) * 50
+        short_idx = [n for n in range(len(pairs))
+                     if len(work[pairs[n][0]]) <= cut]
+        long_idx = [n for n in range(len(pairs))
+                    if len(work[pairs[n][0]]) > cut]
+        edges = []
+        if short_idx:
+            e1, l1 = rung(short_idx, BAND)
+            redo, _ = rung(e1 + l1, WIDE_BAND, keep_low=True) \
+                if e1 + l1 else ([], None)
+            edges += redo
+        if long_idx:
+            # long reads climb a triage ladder with lows terminal at every
+            # rung: anchor-voted deltas centre the band on the true
+            # diagonal, so wrong-locus pairs score about 0 at every width
+            # and only band-EDGE hits (a real alignment continuing outside
+            # the band) go wider.  Presets whose band and wide band meet
+            # (CLR) collapse the ladder to their widest rung.
+            mid = max(BAND, -(-(WIDE_BAND // 2) // 8) * 8)
+            e1 = long_idx
+            if BAND < mid:
+                e1, _ = rung(e1, BAND, keep_low=True)
+            if e1:
+                e1, _ = rung(e1, mid, keep_low=True)
+            if e1 and mid < WIDE_BAND:
+                e1, _ = rung(e1, WIDE_BAND, keep_low=True)
+            edges += e1
+        if edges:
+            rung(edges, 4 * WIDE_BAND, keep_low=True, keep_edge=True)
+        return results
+
     def score_pairs(pairs):
         """Banded-first scoring: anchors supply the expected diagonal, so
         each pair costs O(Lr x BAND) instead of O(Lr x Lp); pairs whose
         banded best touches the band edge or misses min_score are rescored
-        with the full DP (wrong-diagonal / out-of-band safety net)."""
+        with the full DP (wrong-diagonal / out-of-band safety net).  Pairs
+        without an anchor diagonal take the full DP under either ladder."""
         if not pairs:
             return {}
         deltas = [cand_deltas.get(p) for p in pairs]
         if any(d is None for d in deltas):
             return score_pairs_full(pairs)
+        if host_engine:
+            return score_pairs_host(pairs, deltas)
 
         # flush masked reads + register every path key BEFORE the first
         # dispatch, so the path tables grow at most once per round

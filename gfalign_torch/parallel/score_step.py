@@ -1,15 +1,19 @@
 """Frontier scoring step: NW scores, the membership filter and the
 (bad, good, unaligned) tallies of a whole frontier, on the tensors' device.
 
-This is the JAX package's per-device step (gfalign_tpu/parallel/
-score_step.py `_local_step`); its mesh and shard_map wrapping are a later
-slice.  Only the (C, 3) tallies leave the device.
+`local_step` is the JAX package's per-device step (gfalign_tpu/parallel/
+score_step.py `_local_step`); only the (C, 3) tallies leave the device.
+`sharded_scoring_step` is its two-axis form over the ranks of a process
+group: the candidates split over the grid's "cand" axis and the reads over
+its "data" axis at once (parallel/mesh.py), the tallies summed over all
+ranks, which is the JAX step's shard_map with `psum("data")`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.nw_cuda import BLOCK_R, ReadOperand
@@ -103,3 +107,68 @@ def local_step_prepared(a_keys: torch.Tensor, a_len: torch.Tensor,
     that depends only on the reads is computed here."""
     scores = scores_prepared(a_keys, a_len, reads.operand)       # (C, Rp)
     return _tallies(scores, a_keys, reads.side, filter_alignments)
+
+
+def pad_for_mesh(arr: np.ndarray, lens: np.ndarray, shards: int,
+                 pad_key: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad the leading batch dim to a multiple of the mesh axis size."""
+    n = arr.shape[0]
+    target = -(-max(n, 1) // shards) * shards
+    if target == n:
+        return arr, lens
+    extra = target - n
+    arr = np.concatenate([arr, np.full((extra,) + arr.shape[1:], pad_key, arr.dtype)])
+    lens = np.concatenate([lens, np.zeros((extra,), lens.dtype)])
+    return arr, lens
+
+
+def sharded_scoring_step(a_keys, a_len, b_keys, b_len,
+                         grid: Optional[Tuple[int, int]] = None,
+                         device=None) -> torch.Tensor:
+    """(C, 3) int32 [bad, good, unaligned] of candidates a (C, n) against
+    reads b (R, m), membership-filtered, computed by every rank of the
+    process group together: rank p sits at (p // cand, p % cand) on the
+    (data, cand) `grid` (default `default_mesh_shape` of the world size),
+    scores its candidate block against its read block with `local_step`
+    (K1 on CUDA) on `device` (default CUDA, the rank's card), writes the
+    block's tallies into a zeroed (C, 3) int64 vector at its candidate
+    offset, and sums that vector once over all ranks
+    (dist.allreduce_stats).  The sum of a candidate block over the data
+    axis is the JAX step's psum("data"); every rank returns the whole
+    result.  Candidates pad with -1 keys and reads with -2 keys to
+    multiples of the axes (`pad_for_mesh`); padded reads have b_len 0 and
+    count nowhere.  With one process this is `local_step` itself."""
+    from . import dist
+    from .mesh import default_mesh_shape, grid_position
+
+    rank, count = dist.process_info()
+    grid = default_mesh_shape(count) if grid is None else tuple(grid)
+    if grid[0] * grid[1] != count:
+        raise ValueError(f"a {grid[0]} x {grid[1]} grid needs {grid[0] * grid[1]} "
+                         f"ranks, the process group has {count}")
+    data_i, cand_i = grid_position(rank, grid)
+    device = dist.rank_device("cuda" if device is None else device)
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    a_keys, a_len, b_keys, b_len = (host(x).astype(np.int32)
+                                    for x in (a_keys, a_len, b_keys, b_len))
+    C = a_keys.shape[0]
+    a_keys, a_len = pad_for_mesh(a_keys, a_len, grid[1], -1)
+    b_keys, b_len = pad_for_mesh(b_keys, b_len, grid[0], -2)
+    cl, rl = a_keys.shape[0] // grid[1], b_keys.shape[0] // grid[0]
+    c0, r0 = cand_i * cl, data_i * rl
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    local = local_step(put(a_keys[c0:c0 + cl]), put(a_len[c0:c0 + cl]),
+                       put(b_keys[r0:r0 + rl]), put(b_len[r0:r0 + rl]),
+                       filter_alignments=True)
+    if count == 1:
+        return local[:C]
+    totals = np.zeros((a_keys.shape[0], 3), np.int64)
+    totals[c0:c0 + cl] = local.cpu().numpy()
+    summed = np.asarray(dist.allreduce_stats(totals.reshape(-1).tolist()), np.int64)
+    return torch.from_numpy(summed.reshape(-1, 3)[:C].astype(np.int32)).to(device)

@@ -49,6 +49,11 @@ def test_installed_wheel_builds_its_native_library_in_the_user_cache(tmp_path):
     names = set(zipfile.ZipFile(wheel).namelist())
     missing = [n for n in WANTED if n not in names]
     assert not missing, missing
+    (entry_points,) = [n for n in names if n.endswith(".dist-info/entry_points.txt")]
+    scripts = zipfile.ZipFile(wheel).read(entry_points).decode()
+    for line in ("gfalign-torch = gfalign_torch.cli.main:main",
+                 "gfalign-torch-validate = gfalign_torch.cli.validate:main"):
+        assert line in scripts.splitlines(), scripts
     site = tmp_path / "site"
     with zipfile.ZipFile(wheel) as z:
         z.extractall(site)
@@ -119,4 +124,48 @@ def test_processes_building_one_host_library_together_compile_once(tmp_path):
     assert [p.returncode for p in procs] == [0, 0], [o[1][-800:] for o in outs]
     paths = {o[0].strip() for o in outs}
     assert len(paths) == 1 and pathlib.Path(paths.pop()).is_file()
+    assert log.read_text().splitlines() == ["run"]
+
+
+def test_processes_building_one_cuda_library_together_run_nvcc_once(tmp_path):
+    """The nvcc route (cuda_build.build: start_build, finish_build) with a
+    stub nvcc under CUDA_HOME that counts its runs and writes its -o file:
+    two processes building one source into an empty directory at once run
+    the compiler once (the flock and the freshness check under it), and a
+    third finds the library up to date and runs nothing."""
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/bin/sh\n"
+                    f"echo run >> {log}\n"
+                    "sleep 1\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then echo lib > \"$2\"; fi\n"
+                    "  shift\n"
+                    "done\n")
+    nvcc.chmod(0o755)
+    code = ("import pathlib, sys\n"
+            "from gfalign_torch.ops import cuda_build\n"
+            "cuda_build.BUILD_DIR = pathlib.Path(sys.argv[1])\n"
+            "cuda_build.build('nw_path')\n"
+            "print(cuda_build.lib_path('nw_path'))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_HOME": str(tmp_path / "cuda")}
+
+    def start():
+        return subprocess.Popen([sys.executable, "-c", code, str(tmp_path / "b")],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, env=env)
+
+    procs = [start() for _ in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], [o[1][-800:] for o in outs]
+    (lib,) = {o[0].strip() for o in outs}
+    assert pathlib.Path(lib).read_text() == "lib\n"
+    assert log.read_text().splitlines() == ["run"]
+    third = start()
+    assert third.communicate(timeout=120)[0].strip() == lib and third.returncode == 0
     assert log.read_text().splitlines() == ["run"]

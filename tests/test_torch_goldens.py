@@ -17,6 +17,12 @@ package on the CPU:
 the inputs and GAFs of the three `align` runs of chip_smoke.py (see
 `align_workloads`), made by the JAX package on the CPU with its device
 scoring ladder (GFALIGN_TPU_ALIGN_DEVICE=1); the same command writes it.
+`tests/data/torch_slice_align_host_seed0.md5` holds the same for the
+seeded and band_edge runs through the JAX package's default engine, its
+native host scoring ladder (the port's GFALIGN_TORCH_ALIGN_ENGINE=host,
+chip_smoke.py phase 12):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_goldens.py --regenerate-align-host
 
 The tier-1 tests below check that the port's own workload generator still
 writes the recorded inputs, so that the chip run's comparison against the
@@ -34,6 +40,8 @@ DATA = pathlib.Path(__file__).resolve().parent / "data"
 SEARCH_GOLDEN = DATA / "torch_slice_search_seed0.out"
 MD5_GOLDEN = DATA / "torch_slice_evalpath_seed0.md5"
 ALIGN_MD5_GOLDEN = DATA / "torch_slice_align_seed0.md5"
+ALIGN_HOST_MD5_GOLDEN = DATA / "torch_slice_align_host_seed0.md5"
+ALIGN_HOST_RUNS = ("seeded", "band_edge")
 ALIGN_SEEDED_READS = 10000  # all of make_workload(seed=0)'s reads
 SEARCH_ARGS = ["-s", "498", "-d", "503"]
 EVALPATH_PATH = "498+,499+,500+,501+,502+,503+"
@@ -251,19 +259,30 @@ def _regenerate(align_only: bool = False) -> None:
                                       for m, n, name in rows))
 
 
-def _regenerate_align(synth, write_gfa1, main, full_scale_wl, d) -> None:
+def _regenerate_align(synth, write_gfa1, main, full_scale_wl, d, host=False) -> None:
     """The three align GAFs by the JAX package's device scoring ladder on
-    the CPU.  ALIGN_ONLY in the environment names one run to redo (the
-    others keep their rows); ALIGN_KEEP_DIR names a directory that gets a
-    copy of each GAF."""
+    the CPU, or with `host` the seeded and band_edge GAFs by its default
+    engine (the native host ladder) into ALIGN_HOST_MD5_GOLDEN.
+    ALIGN_ONLY in the environment names one run to redo (the others keep
+    their rows); ALIGN_KEEP_DIR names a directory that gets a copy of each
+    GAF."""
     import os
     import time
 
-    os.environ["GFALIGN_TPU_ALIGN_DEVICE"] = "1"
+    golden = ALIGN_HOST_MD5_GOLDEN if host else ALIGN_MD5_GOLDEN
+    if host:
+        os.environ.pop("GFALIGN_TPU_ALIGN_DEVICE", None)
+        from gfalign_tpu.io import native
+        if not native.available():
+            raise SystemExit("the JAX package's native library did not build")
+    else:
+        os.environ["GFALIGN_TPU_ALIGN_DEVICE"] = "1"
     runs = align_workloads(synth, write_gfa1, full_scale_wl, d)
+    if host:
+        runs = {name: runs[name] for name in ALIGN_HOST_RUNS}
     only = os.environ.get("ALIGN_ONLY")
     keep = os.environ.get("ALIGN_KEEP_DIR")
-    rows = read_md5_golden(ALIGN_MD5_GOLDEN) if ALIGN_MD5_GOLDEN.exists() else {}
+    rows = read_md5_golden(golden) if golden.exists() else {}
     for name, (gfa, fa, preset) in runs.items():
         for path in (gfa, fa):
             rows[pathlib.Path(path).name] = digest(pathlib.Path(path).read_bytes())
@@ -277,13 +296,33 @@ def _regenerate_align(synth, write_gfa1, main, full_scale_wl, d) -> None:
         print(f"{name}: {rows[out.name]} in {time.time() - t0:.0f} s", flush=True)
         if keep:
             pathlib.Path(keep, out.name).write_bytes(out.read_bytes())
-        ALIGN_MD5_GOLDEN.write_text("".join(
+        golden.write_text("".join(
             f"{m}  {n}  {key}\n" for key, (m, n) in sorted(rows.items())))
 
 
+def _regenerate_align_host() -> None:
+    import tempfile
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from gfalign_tpu import synth
+    from gfalign_tpu.cli.main import main
+    from gfalign_tpu.io.writers import write_gfa1
+
+    with tempfile.TemporaryDirectory() as d:
+        _regenerate_align(synth, write_gfa1, main, synth.make_workload(seed=0),
+                          pathlib.Path(d) / "align", host=True)
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] not in (["--regenerate"], ["--regenerate-align"]):
-        raise SystemExit("usage: python tests/test_torch_goldens.py "
-                         "--regenerate | --regenerate-align")
+    usage = ("usage: python tests/test_torch_goldens.py --regenerate | "
+             "--regenerate-align | --regenerate-align-host")
+    if len(sys.argv) != 2 or sys.argv[1] not in (
+            "--regenerate", "--regenerate-align", "--regenerate-align-host"):
+        raise SystemExit(usage)
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-    _regenerate(align_only=sys.argv[1] == "--regenerate-align")
+    if sys.argv[1] == "--regenerate-align-host":
+        _regenerate_align_host()
+    else:
+        _regenerate(align_only=sys.argv[1] == "--regenerate-align")

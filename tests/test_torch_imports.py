@@ -59,6 +59,13 @@ def test_distribution_modules_are_scanned():
         assert name in SOURCES, name
 
 
+def test_modules_of_the_rest_of_the_package_are_scanned():
+    for name in ("gfalign_torch/utils/profiling.py", "gfalign_torch/cli/validate.py",
+                 "gfalign_torch/cli/generate_tests.py", "gfalign_torch/parallel/mesh.py",
+                 "gfalign_torch/parallel/score_step.py", "gfalign_torch/dryrun.py"):
+        assert name in SOURCES, name
+
+
 def test_every_module_imports_with_jax_blocked():
     modules = [s[:-3].replace("/", ".").removesuffix(".__init__")
                for s in SOURCES if s.startswith("gfalign_torch/")]
