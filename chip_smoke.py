@@ -74,11 +74,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      post-filter reads (golden md5, K1 launched on each rank: the CLI's
      default driver on CUDA).  A rank that exits non-zero or differs fails the
      script; past the deadline every rank is killed and the script fails.
- 12. the host ladder: `align -p hifi` with GFALIGN_TORCH_ALIGN_ENGINE=host
-     (the native host scoring ladder, the JAX package's default engine) on
+ 12. the host ladder: `align -p hifi` on the CPU device, whose ladder is
+     the native host scoring ladder (the JAX package's default engine), on
      phase 9's seeded run (all 10,000 reads) and band-edge run, each GAF
      equal to tests/data/torch_slice_align_host_seed0.md5 (made by that
-     engine), no K3 launched; its scoring seconds, rungs, pairs and banded
+     engine), no kernel launched; its scoring seconds, rungs, pairs and banded
      cells beside phase 9's device ladder on the same reads, with both
      runs' stage seconds and traceback counts;
  13. the trace: the CLI `search` on the post-filter reads (R = 249) without
@@ -90,7 +90,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
      on cuda:0: the two-axis scoring step on the (2, 2) grid (the example
      batch and the full-scale search's largest frontier) equal to
      local_step, the full-scale search frontier-sharded on four ranks and
-     the align of 2,000 reads on four ranks, each byte-equal to one
+     the align of all 10,000 reads on four ranks, each byte-equal to one
      process; every rank must launch K1, and every align rank K3.
 
 A kernel's bound is its useful DP cells times its integer-ALU operations
@@ -973,9 +973,10 @@ class AlignRecorder:
         return sum(s.elapsed_time(e) for s, e in self.events)
 
 
-def run_align(name, runs, golden, workdir, tag="device"):
-    """One `align` run through the CLI on CUDA against its golden GAF (the
-    ladder is GFALIGN_TORCH_ALIGN_ENGINE's; `tag` names the output)."""
+def run_align(name, runs, golden, workdir, tag="device", device=None):
+    """One `align` run through the CLI against its golden GAF, on CUDA (the
+    device ladder) unless `device` is "cpu" (the host ladder); `tag` names
+    the output."""
     import torch
 
     from gfalign_torch.cli.main import main
@@ -998,7 +999,8 @@ def run_align(name, runs, golden, workdir, tag="device"):
     buf, err = io.StringIO(), io.StringIO()
     t0 = time.time()
     with rec.installed(), contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-        rc = main(["align", "-f", gfa, "-r", reads, "-o", str(out_gaf), "-p", preset])
+        rc = main(["align", "-f", gfa, "-r", reads, "-o", str(out_gaf), "-p", preset],
+                  device=device)
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = dict(seqalign_cuda.LAUNCHES)
@@ -1126,32 +1128,26 @@ def ensure_align_inputs(workdir, wl, phase):
 
 
 def phase_host_ladder(workdir, wl, device_runs=None):
-    """Phase 12: `align -p hifi` with GFALIGN_TORCH_ALIGN_ENGINE=host (the
-    native host ladder, the JAX package's default engine) over the seeded
+    """Phase 12: `align -p hifi` on the CPU device, whose ladder is the
+    native host ladder (the JAX package's default engine), over the seeded
     run's 10,000 reads and the band-edge run, each GAF against the host
     golden, beside phase 9's device ladder (K3) on the same reads."""
-    import os
-
     from gfalign_torch.engine import graph_align
     from tests.test_torch_goldens import ALIGN_HOST_RUNS
 
     runs = ensure_align_inputs(workdir, wl, 12)
     golden = read_goldens("torch_slice_align_host_seed0.md5")
     out = {}
-    os.environ["GFALIGN_TORCH_ALIGN_ENGINE"] = "host"
-    try:
-        for name in ALIGN_HOST_RUNS:
-            for k in graph_align.HOST_LADDER:
-                graph_align.HOST_LADDER[k] = 0
-            res, _ = run_align(name, runs, golden, workdir, tag="host")
-            res["host_ladder"] = dict(graph_align.HOST_LADDER)
-            out[name] = res
-            if res["launches"]["banded"] or not res["host_ladder"]["rungs"]:
-                raise RuntimeError(f"host-engine align ({name}) launched K3 "
-                                   f"{res['launches']['banded']} times over "
-                                   f"{res['host_ladder']['rungs']} host rungs")
-    finally:
-        del os.environ["GFALIGN_TORCH_ALIGN_ENGINE"]
+    for name in ALIGN_HOST_RUNS:
+        for k in graph_align.HOST_LADDER:
+            graph_align.HOST_LADDER[k] = 0
+        res, _ = run_align(name, runs, golden, workdir, tag="host", device="cpu")
+        res["host_ladder"] = dict(graph_align.HOST_LADDER)
+        out[name] = res
+        if any(res["launches"].values()) or not res["host_ladder"]["rungs"]:
+            raise RuntimeError(f"host-ladder align ({name}) launched "
+                               f"{res['launches']} over "
+                               f"{res['host_ladder']['rungs']} host rungs")
     for name, res in out.items():
         ph, hl = res["phase_seconds"], res["host_ladder"]
         rate = hl["cells"] / ph["scoring"] / 1e9 if ph["scoring"] else 0.0

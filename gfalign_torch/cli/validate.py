@@ -47,26 +47,27 @@ def run_tst(tst: pathlib.Path, device=None) -> bool:
     import tempfile
 
     root = tst.parent.parent
-    workdir = pathlib.Path(tempfile.mkdtemp(prefix="gfalign-validate-"))
-    for entry in root.iterdir():
-        try:
-            (workdir / entry.name).symlink_to(entry)
-        except OSError:
-            pass
     old_cwd, old_stdout = os.getcwd(), sys.stdout
     buf = io.StringIO()
     code = 1
-    try:
-        os.chdir(workdir)
-        sys.stdout = buf
-        code = main(argv, device=device)
-    except SystemExit as exc:
-        code = int(exc.code or 0)
-    except Exception as exc:  # a crash is a FAIL, not an abort
-        print(f"error running {tst.name}: {exc}", file=sys.stderr)
-    finally:
-        os.chdir(old_cwd)
-        sys.stdout = old_stdout
+    with tempfile.TemporaryDirectory(prefix="gfalign-validate-") as tmp:
+        workdir = pathlib.Path(tmp)
+        for entry in root.iterdir():
+            try:
+                (workdir / entry.name).symlink_to(entry)
+            except OSError:
+                pass
+        try:
+            os.chdir(workdir)
+            sys.stdout = buf
+            code = main(argv, device=device)
+        except SystemExit as exc:
+            code = int(exc.code or 0)
+        except Exception as exc:  # a crash is a FAIL, not an abort
+            print(f"error running {tst.name}: {exc}", file=sys.stderr)
+        finally:
+            os.chdir(old_cwd)
+            sys.stdout = old_stdout
 
     ok = code == 0 and buf.getvalue().split("\n") == expected.split("\n")
     color = GREEN if ok else RED

@@ -22,9 +22,8 @@ The JAX dry run drives (b) and (c) on the reference's random2/random3
 fixtures, which this repository does not hold, and skips them without
 them; the port runs them on synth workloads instead: at full scale the
 search of chip_smoke.py phase 5 (make_workload(seed=0), 10,000 reads)
-and the align of the first DRYRUN_ALIGN_READS of its reads, and with
-full_scale=False a 120-segment workload of 200 reads and the 10-read
-align workload of the tests.
+and the align of all its reads, and with full_scale=False a 120-segment
+workload of 200 reads and the 10-read align workload of the tests.
 
     python -m gfalign_torch.dryrun [n] [--cpu] [--small]
 
@@ -46,7 +45,6 @@ import time
 
 import numpy as np
 
-DRYRUN_ALIGN_READS = 2000        # reads of the full-scale align (c)
 DRYRUN_SECONDS = {True: 900, False: 180}   # one spawn's deadline by full_scale
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -81,7 +79,7 @@ def _write_workloads(work: pathlib.Path, full_scale: bool) -> dict:
 
     if full_scale:
         wl = synth.make_workload(seed=0)
-        align_wl, reads = wl, wl.reads[:DRYRUN_ALIGN_READS]
+        align_wl, reads = wl, wl.reads
     else:
         wl = synth.make_workload(seed=0, n_segments=120, n_reads=200, tangle_k=4)
         align_wl = synth.make_workload(seed=41, n_segments=120, n_reads=10,
@@ -230,7 +228,7 @@ def _rank_worker(spec_path: str, task: str) -> int:
             raise RuntimeError(f"rank {rank}: align exited {rc}")
         res["align_s"] = time.perf_counter() - t0
         res["align_launches"] = dict(seqalign_cuda.LAUNCHES)
-        res["engine"] = graph_align.align_engine()
+        res["engine"] = graph_align.align_engine(device)
     if device.type == "cuda":       # K1 for (a) and (b), K3 for (c)
         launched = ([res["step_k1"], res["search_k1"]] if task == "search"
                     else [res["align_launches"]["banded"]])

@@ -5,9 +5,9 @@ is the framework's own pipeline with GraphAligner-compatible GAF output
 (column contract + NM/AS/dv/id/cg tags).  PyTorch port of
 gfalign_tpu/engine/graph_align.py: scoring runs on `device` (the CUDA
 kernels of ops/seqalign_cuda.py, or their plain versions on the CPU).
-The seeded engine has two scoring ladders (`align_engine`): the device
-ladder (the default) and the native host ladder of the JAX package's
-default engine (GFALIGN_TORCH_ALIGN_ENGINE=host).
+The seeded engine has two scoring ladders and the device picks one
+(`align_engine`): on CUDA the device ladder (K3, K4), on the CPU the
+native host ladder of the JAX package's default engine.
 
 Pipeline:
   1. enumerate oriented simple paths through the graph (both orientations;
@@ -55,8 +55,6 @@ PHASE_SECONDS = {"seeding": 0.0, "scoring": 0.0, "traceback": 0.0}
 # (seq_banded_pairs calls), pairs scored and banded DP cells (read length
 # times band width, summed over the pairs of every rung).
 HOST_LADDER = {"rungs": 0, "pairs": 0, "cells": 0}
-
-ENGINES = ("device", "host")
 
 
 @contextlib.contextmanager
@@ -656,19 +654,13 @@ class DevicePools:
         self._pending = []
 
 
-def align_engine() -> str:
-    """The seeded engine's scoring ladder, from GFALIGN_TORCH_ALIGN_ENGINE:
-    "device" (the default) scores on the run's device (K3, K4 on CUDA),
-    "host" on the native host ladder (`seq_banded_pairs`, the JAX
-    package's default engine), which prints that engine's bytes where the
-    two ladders disagree.  Any other value raises."""
-    import os
-
-    name = os.environ.get("GFALIGN_TORCH_ALIGN_ENGINE") or "device"
-    if name not in ENGINES:
-        raise ValueError(f"GFALIGN_TORCH_ALIGN_ENGINE={name!r}: the align "
-                         f"engine is one of {', '.join(ENGINES)}")
-    return name
+def align_engine(device) -> str:
+    """The seeded engine's scoring ladder on `device`: "device" on CUDA
+    (K3 banded, K4 full DP), "host" on the CPU, where the native host
+    ladder (`seq_banded_pairs`, the JAX package's default engine) is far
+    faster than the kernels' plain versions and prints that engine's
+    bytes where the two ladders disagree."""
+    return "device" if torch.device(device).type == "cuda" else "host"
 
 
 def align_reads(graph: Graph, reads: Sequence[Tuple[str, str]],
@@ -680,9 +672,10 @@ def align_reads(graph: Graph, reads: Sequence[Tuple[str, str]],
     Small graphs use exact exhaustive path enumeration; larger graphs use
     k-mer seed-and-extend candidate generation (engine/seeding.py).
     `params` carries the preset-tunable surface (AlignParams); when given
-    it supersedes `min_score`.  Scoring runs on `device`."""
+    it supersedes `min_score`.  Scoring runs on `device`, whose type
+    picks the seeded engine's ladder (align_engine)."""
     device = torch.device(device)
-    engine = align_engine()
+    engine = align_engine(device)
     if params is None:
         params = AlignParams(min_score=min_score)
     if graph.n_segments > SEED_THRESHOLD:

@@ -1,7 +1,10 @@
 """The port's `align` slice on the CPU against the JAX package run with its
 device scoring ladder (GFALIGN_TPU_ALIGN_DEVICE=1) on the CPU: seeding,
 the device pools, and the CLI end to end (GAF, stdout and the stderr echo
-byte-equal), seeded and exhaustive."""
+byte-equal), seeded and exhaustive.  The port runs the device ladder on
+CUDA only; these tests hold it here through the kernels' plain versions
+by pinning graph_align.align_engine to it (tests/test_torch_align_host.py
+covers the CPU's own ladder)."""
 
 import contextlib
 import io
@@ -34,6 +37,7 @@ SMALL = dict(n_segments=12, n_reads=12, seg_len=(60, 120), read_len=(80, 200),
 @pytest.fixture(autouse=True)
 def jax_device_ladder(monkeypatch):
     monkeypatch.setenv("GFALIGN_TPU_ALIGN_DEVICE", "1")
+    monkeypatch.setattr(graph_align, "align_engine", lambda device: "device")
 
 
 def run(main, argv, **kw):

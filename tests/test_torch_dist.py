@@ -591,8 +591,8 @@ SEEDED = dict(n_segments=120, seg_len=(120, 400), read_len=(300, 900),
 def test_distributed_align_matches_one_process(tmp_path, nproc, n_reads, monkeypatch):
     """Reads sharded by index (3 ranks: uneven shards; 2 reads: a rank
     with none): rank 0 writes the one-process GAF, equal to gfalign_tpu's
-    device ladder, and every rank's native thread cap is back at its
-    default afterwards."""
+    default engine (the host ladder, the port's ladder on the CPU), and
+    every rank's native thread cap is back at its default afterwards."""
     wl = synth.make_workload(seed=41, n_reads=n_reads, **SEEDED)
     paths = synth.write_workload(wl, str(tmp_path / "wl"))
     single = tmp_path / "single.gaf"
@@ -606,7 +606,7 @@ def test_distributed_align_matches_one_process(tmp_path, nproc, n_reads, monkeyp
     pytest.importorskip("jax")
     from gfalign_tpu.cli.main import main as jax_main
 
-    monkeypatch.setenv("GFALIGN_TPU_ALIGN_DEVICE", "1")
+    monkeypatch.delenv("GFALIGN_TPU_ALIGN_DEVICE", raising=False)
     jax_gaf = tmp_path / "jax.gaf"
     run_cli(jax_main, ["align", "-f", paths["gfa"], "-r", paths["reads"], "-o", str(jax_gaf)])
     assert jax_gaf.read_bytes() == single.read_bytes()

@@ -19,8 +19,8 @@ the inputs and GAFs of the three `align` runs of chip_smoke.py (see
 scoring ladder (GFALIGN_TPU_ALIGN_DEVICE=1); the same command writes it.
 `tests/data/torch_slice_align_host_seed0.md5` holds the same for the
 seeded and band_edge runs through the JAX package's default engine, its
-native host scoring ladder (the port's GFALIGN_TORCH_ALIGN_ENGINE=host,
-chip_smoke.py phase 12):
+native host scoring ladder (the port's ladder on the CPU, chip_smoke.py
+phase 12):
 
     JAX_PLATFORMS=cpu python tests/test_torch_goldens.py --regenerate-align-host
 

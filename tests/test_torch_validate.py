@@ -111,6 +111,24 @@ def test_validator_passes_fails_and_exits_as_the_reference(tmp_path, test_files)
     assert run_validate([empty])[0] == 2
 
 
+def test_validator_leaves_no_scratch_directory(tmp_path, test_files, monkeypatch):
+    """Each .tst runs in a scratch directory of symlinks that is removed
+    after it, passed, failed or crashed."""
+    scratch = tmp_path / "tmp"
+    scratch.mkdir()
+    monkeypatch.setattr("tempfile.tempdir", str(scratch))
+    root = make_root(tmp_path, test_files)
+    vf = root / "validateFiles"
+    cmd = "gfalign evalGFA -f testFiles/random1.gfa -g testFiles/random1.gaf"
+    want = jax_stdout(cmd.split()[1:], root)
+    (vf / "pass.tst").write_text(f"{cmd}\nembedded\n{want}")
+    (vf / "fail.tst").write_text(f"{cmd}\nembedded\n{want}x")
+    (vf / "crash.tst").write_text("gfalign nosuchmode -f x\nembedded\n")
+    code, out = run_validate([vf])
+    assert code == 1 and "1/3 passed" in out
+    assert list(scratch.iterdir()) == []
+
+
 def test_validator_without_a_card_exits_2(tmp_path, test_files, monkeypatch):
     """CUDA is the default device: without a card and without
     GFALIGN_TORCH_DEVICE=cpu the validator says so and runs nothing."""
