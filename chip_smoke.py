@@ -1252,7 +1252,7 @@ try:
 except SystemExit as exc:
     code = exc.code
 sys.stdout.flush()
-print("LAUNCHES " + json.dumps(nw_cuda.LAUNCHES), file=sys.stderr, flush=True)
+print("LAUNCHES " + json.dumps(dict(nw_cuda.LAUNCHES)), file=sys.stderr, flush=True)
 raise SystemExit(code)
 """
 

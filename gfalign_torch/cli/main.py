@@ -27,6 +27,7 @@ import torch
 VERSION = "0.1.0"
 
 TOOLS = {"align": 0, "evalGFA": 1, "subgraph": 2, "search": 3, "filter": 4, "evalPath": 5}
+MODE_NAMES = {mode: name for name, mode in TOOLS.items()}
 
 _HELP = """gfalign [options] [tool] [arguments]
 -h for additional help.
@@ -291,13 +292,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def run(ui: UserInput, device: torch.device) -> int:
+    """One CLI call.  Once the process knows it has work (a rank of a
+    distributed run that a mode leaves idle returns first), the span
+    cli.<mode> holds the rest of the call, recorded under torch.profiler
+    when GFALIGN_TORCH_TRACE names a directory (one Chrome trace a process,
+    utils/profiling.py); under --verbose, the spans and counters the call
+    added follow, one line each, on stderr."""
     import os
 
-    from ..engine.alignments import AlignmentSet
-    from ..graph.stats import report_stats
-    from ..io.gfa import read_gfa
+    from ..utils import profiling
     from ..utils.log import lg
-    from ..utils.profiling import maybe_trace
 
     out = sys.stdout
     # multi-process mode: GFALIGN_TORCH_DISTRIBUTED=1 -> gloo process
@@ -319,6 +323,23 @@ def run(ui: UserInput, device: torch.device) -> int:
             device = dist.rank_device(device)
             if shard[0] != 0:   # identical output everywhere; print once
                 out = io.StringIO()
+    before = profiling.snapshot() if lg.verbose_flag else None
+    with profiling.maybe_trace(device), \
+            profiling.span("cli." + MODE_NAMES[ui.mode]):
+        rc = _run(ui, device, out, shard)
+    if before is not None:
+        for line in profiling.report(profiling.since(before)):
+            lg.verbose(line)
+    return rc
+
+
+def _run(ui: UserInput, device: torch.device, out, shard) -> int:
+    from ..engine.alignments import AlignmentSet
+    from ..graph.stats import report_stats
+    from ..io.gfa import read_gfa
+    from ..utils.log import lg
+    from ..utils.profiling import span
+
     if ui.threads:
         from ..io import native
         native.set_threads(ui.threads)
@@ -337,12 +358,10 @@ def run(ui: UserInput, device: torch.device) -> int:
     alignments = AlignmentSet()
     if ui.in_align:
         lg.verbose(f"Alignment: {ui.in_align}")
-        alignments.load(ui.in_align, ui.terminal_alignments_flag, shard=shard,
-                        shard_by="qname")
-    # GFALIGN_TORCH_TRACE=<dir>: the mode under torch.profiler, one Chrome
-    # trace a process (utils/profiling.py)
-    with maybe_trace(device):
-        return _run_mode(ui, graph, alignments, out, device, shard)
+        with span("io.read_gaf"):
+            alignments.load(ui.in_align, ui.terminal_alignments_flag,
+                            shard=shard, shard_by="qname")
+    return _run_mode(ui, graph, alignments, out, device, shard)
 
 
 def _distributes(ui: UserInput) -> bool:

@@ -28,6 +28,7 @@ from ..ops.nw_path import (ORIENT_CODE, Step, encode_path_batch,
                            nw_align_oracle, nw_pair_scores, pad_bucket,
                            pad_pow2, revcomp_path)
 from ..parallel.score_step import local_step_prepared, prepare_reads
+from ..utils.profiling import span
 
 
 @dataclass
@@ -175,7 +176,10 @@ def evaluate_candidates(candidates: Sequence[Sequence[Step]],
     """Score a frontier of candidates in one device step on the batch's
     device (`device` applies only when `read_paths` is not a ReadBatch), or,
     where `native_scoring_ok`, in one fused native call (membership filter,
-    fw/rc scoring and tallies)."""
+    fw/rc scoring and tallies).  On the device its parts are the spans
+    search.evaluate.encode (the frontier buffer), .dispatch (the upload and
+    the device step's launches), .fetch (the copy back, which waits for the
+    device) and .unpack."""
     results = [PathScore() for _ in candidates]
     batch = _as_batch(read_paths, device)
     if batch.R == 0 or not candidates:
@@ -192,15 +196,21 @@ def evaluate_candidates(candidates: Sequence[Sequence[Step]],
             results[ci].good = int(tallies[ci, 1])
             results[ci].unaligned = int(tallies[ci, 2])
         return results
-    buf, C, n = _frontier_buffer(candidates)
-    reads = batch.prepared()
-    on_device = torch.from_numpy(buf).to(reads.operand.device)   # the one upload
-    tallies = local_step_prepared(on_device[:C * n].view(C, n), on_device[C * n:],
-                                  reads, filter_alignments).cpu().numpy()
-    for ci in range(len(candidates)):
-        results[ci].bad = int(tallies[ci, 0])
-        results[ci].good = int(tallies[ci, 1]) + batch.n_empty
-        results[ci].unaligned = int(tallies[ci, 2])
+    with span("search.evaluate.encode"):
+        buf, C, n = _frontier_buffer(candidates)
+    with span("search.evaluate.dispatch"):
+        reads = batch.prepared()
+        on_device = torch.from_numpy(buf).to(reads.operand.device)   # the one upload
+        step = local_step_prepared(on_device[:C * n].view(C, n), on_device[C * n:],
+                                   reads, filter_alignments)
+    with span("search.evaluate.fetch"):
+        tallies = step.cpu()
+    with span("search.evaluate.unpack"):
+        tallies = tallies.numpy()
+        for ci in range(len(candidates)):
+            results[ci].bad = int(tallies[ci, 0])
+            results[ci].good = int(tallies[ci, 1]) + batch.n_empty
+            results[ci].unaligned = int(tallies[ci, 2])
     return results
 
 

@@ -27,10 +27,8 @@ score order ('best first', as the fixtures show for split reads).
 
 from __future__ import annotations
 
-import contextlib
 import re
 import sys
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -41,30 +39,25 @@ from ..graph.model import Graph
 from ..io.fastq import encode_seq, load_reads
 from ..io.stream import OutputStream
 from ..ops import seqalign
+from ..utils import profiling
 from ..utils.log import lg
+from ..utils.profiling import count, span
 
 MIN_SCORE = 20          # reject spurious local hits (hifi preset)
 
 # Host wall seconds per stage of the seeded aligner, summed over the calls
 # since a caller last zeroed them: seeding (index, anchors, candidates),
 # scoring (inside score_pairs: dispatch and the fetch that waits for the
-# device) and traceback.
-PHASE_SECONDS = {"seeding": 0.0, "scoring": 0.0, "traceback": 0.0}
+# device) and traceback: the registry's spans align.<stage>.
+PHASE_SECONDS = profiling.view(profiling.SECONDS, "align.",
+                               ("seeding", "scoring", "traceback"), 0.0)
 
 # The host ladder's native calls since a caller last zeroed them: rungs
 # (seq_banded_pairs calls), pairs scored and banded DP cells (read length
-# times band width, summed over the pairs of every rung).
-HOST_LADDER = {"rungs": 0, "pairs": 0, "cells": 0}
-
-
-@contextlib.contextmanager
-def _timed(stage: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        PHASE_SECONDS[stage] += time.perf_counter() - t0
-
+# times band width, summed over the pairs of every rung).  The registry's
+# counters align.host_ladder.<key>.
+HOST_LADDER = profiling.view(profiling.COUNTS, "align.host_ladder.",
+                             ("rungs", "pairs", "cells"))
 
 
 @dataclass
@@ -715,7 +708,8 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
     else:
         sample_mod = max(1, -(-total_bases // 24_000_000))
         auto_sampled = sample_mod > 1
-    with _timed("seeding"):
+    count("align.reads", len(reads))
+    with span("align.seeding"), span("align.seeding.index"):
         index = KmerIndex(graph, k=params.seed_k, sample_mod=sample_mod)
     if sample_mod > 1:
         msg = (f"seed index subsampled 1/{sample_mod} "
@@ -813,14 +807,17 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
         return cands
 
     read_audits = [CapAudit() for _ in reads]
-    with _timed("seeding"):
-        anchor_lists = anchors_with_diag_batch(
-            index, [encode_seq(seq) for _, seq in reads],
-            params.max_anchors, audits=read_audits)
-        cand_lists: List[List[tuple]] = [
-            gen_candidates(r, seq, anchor_lists[r],
-                           params.max_paths_per_anchor, read_audits[r])
-            for r, (_, seq) in enumerate(reads)]
+    with span("align.seeding"):
+        with span("align.seeding.anchors"):
+            anchor_lists = anchors_with_diag_batch(
+                index, [encode_seq(seq) for _, seq in reads],
+                params.max_anchors, audits=read_audits)
+        with span("align.seeding.candidates"):
+            cand_lists: List[List[tuple]] = [
+                gen_candidates(r, seq, anchor_lists[r],
+                               params.max_paths_per_anchor, read_audits[r])
+                for r, (_, seq) in enumerate(reads)]
+    count("align.candidates", sum(map(len, cand_lists)))
 
     # working read codes, views into one contiguous blob: the host ladder
     # ships (blob, offsets, lengths) without a copy, placement-round
@@ -873,39 +870,43 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
 
         if not native.available():     # raises itself when it cannot build
             raise RuntimeError("the host align engine needs the native library")
-    pools = None if host_engine else DevicePools(work, graph, device)
+    pools = None
+    if not host_engine:
+        with span("align.scoring.pools"):
+            pools = DevicePools(work, graph, device)
     dirty_reads: set = set()   # rows masked since the last pool sync
 
     def score_pairs_full(pairs):
         """Bucketed full-DP pairwise scoring -> {pair_index: (v, bi, bj, 0)}."""
-        buckets: Dict[Tuple[int, int], List[int]] = defaultdict(list)
-        for n, (r, key) in enumerate(pairs):
-            lr_b = pad_pow2(len(work[r]), floor=16)
-            lp_b = pad_pow2(len(path_cache[key]), floor=16)
-            buckets[(lr_b, lp_b)].append(n)
-        results = {}
-        for (lr_b, lp_b), idxs in buckets.items():
-          # chunked dispatches: a round can hold far more pairs than one
-          # (N, lr_b) + (N, lp_b) batch should
-          for c0 in range(0, len(idxs), SCORE_CHUNK):
-            chunk = idxs[c0:c0 + SCORE_CHUNK]
-            n_pad = pad_pow2(len(chunk), floor=8)
-            rc = np.full((n_pad, lr_b), seqalign.PAD, np.int8)
-            pc = np.full((n_pad, lp_b), seqalign.PAD, np.int8)
-            for slot, n in enumerate(chunk):
-                r, key = pairs[n]
-                rc[slot, :len(work[r])] = work[r]
-                pcodes = codes_of(key)
-                pc[slot, :len(pcodes)] = pcodes
-            best, bi, bj = (x.cpu().numpy() for x in
-                            seqalign.batched_pair_scores(
-                                torch.from_numpy(rc).to(device),
-                                torch.from_numpy(pc).to(device)))
-            for slot, n in enumerate(chunk):
-                # 0: scored by the full DP -> traceback must be full too
-                results[n] = (int(best[slot]), int(bi[slot]), int(bj[slot]),
-                              0)
-        return results
+        with span("align.scoring.full"):
+            buckets: Dict[Tuple[int, int], List[int]] = defaultdict(list)
+            for n, (r, key) in enumerate(pairs):
+                lr_b = pad_pow2(len(work[r]), floor=16)
+                lp_b = pad_pow2(len(path_cache[key]), floor=16)
+                buckets[(lr_b, lp_b)].append(n)
+            results = {}
+            for (lr_b, lp_b), idxs in buckets.items():
+              # chunked dispatches: a round can hold far more pairs than one
+              # (N, lr_b) + (N, lp_b) batch should
+              for c0 in range(0, len(idxs), SCORE_CHUNK):
+                chunk = idxs[c0:c0 + SCORE_CHUNK]
+                n_pad = pad_pow2(len(chunk), floor=8)
+                rc = np.full((n_pad, lr_b), seqalign.PAD, np.int8)
+                pc = np.full((n_pad, lp_b), seqalign.PAD, np.int8)
+                for slot, n in enumerate(chunk):
+                    r, key = pairs[n]
+                    rc[slot, :len(work[r])] = work[r]
+                    pcodes = codes_of(key)
+                    pc[slot, :len(pcodes)] = pcodes
+                best, bi, bj = (x.cpu().numpy() for x in
+                                seqalign.batched_pair_scores(
+                                    torch.from_numpy(rc).to(device),
+                                    torch.from_numpy(pc).to(device)))
+                for slot, n in enumerate(chunk):
+                    # 0: scored by the full DP -> traceback must be full too
+                    results[n] = (int(best[slot]), int(bi[slot]), int(bj[slot]),
+                                  0)
+            return results
 
     BAND = params.band
     WIDE_BAND = params.wide_band
@@ -940,14 +941,15 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
 
         def rung(idx_list, width, keep_low=False, keep_edge=False):
             idx = np.asarray(idx_list, np.int32)
-            HOST_LADDER["rungs"] += 1
-            HOST_LADDER["pairs"] += len(idx)
-            HOST_LADDER["cells"] += int(read_len[rid[idx]].sum()) * width
-            best, bi, bj, edge = native.seq_banded_pairs(
-                read_blob, read_off, read_len, path_blob, path_off,
-                path_len, rid[idx], pidn[idx], dl[idx], width,
-                seqalign.MATCH, seqalign.MISMATCH, seqalign.GAP,
-                seqalign.PAD, seqalign._BLOCK)
+            count("align.host_ladder.rungs")
+            count("align.host_ladder.pairs", len(idx))
+            count("align.host_ladder.cells", int(read_len[rid[idx]].sum()) * width)
+            with span("align.scoring.rung"):
+                best, bi, bj, edge = native.seq_banded_pairs(
+                    read_blob, read_off, read_len, path_blob, path_off,
+                    path_len, rid[idx], pidn[idx], dl[idx], width,
+                    seqalign.MATCH, seqalign.MISMATCH, seqalign.GAP,
+                    seqalign.PAD, seqalign._BLOCK)
             redo_edge, redo_low = [], []
             for slot, n in enumerate(idx_list):
                 if edge[slot] and not keep_edge:
@@ -1002,6 +1004,7 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
         without an anchor diagonal take the full DP under either ladder."""
         if not pairs:
             return {}
+        count("align.pairs_scored", len(pairs))
         deltas = [cand_deltas.get(p) for p in pairs]
         if any(d is None for d in deltas):
             return score_pairs_full(pairs)
@@ -1010,11 +1013,12 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
 
         # flush masked reads + register every path key BEFORE the first
         # dispatch, so the path tables grow at most once per round
-        if dirty_reads:
-            pools.update_reads(sorted(dirty_reads), work)
-            dirty_reads.clear()
-        rows = [pools.path_idx(key, path_cache[key]) for _, key in pairs]
-        pools.sync_paths()
+        with span("align.scoring.pools"):
+            if dirty_reads:
+                pools.update_reads(sorted(dirty_reads), work)
+                dirty_reads.clear()
+            rows = [pools.path_idx(key, path_cache[key]) for _, key in pairs]
+            pools.sync_paths()
         irregular = [n for n, row in enumerate(rows) if row is None]
 
         def banded_round(idx_list, width, results, keep_low=False,
@@ -1030,37 +1034,38 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
             Dispatches ship only row indices; read codes and the segment
             arena live on device (see DevicePools) and path strips are
             assembled there."""
-            redo_edge, redo_low = [], []
-            # dispatch ALL chunks before fetching any result: device
-            # execution overlaps host chunk prep (the fetch is the
-            # synchronization point)
-            inflight = []
-            for c0 in range(0, len(idx_list), SCORE_CHUNK):  # bounded dispatch
-                chunk = idx_list[c0:c0 + SCORE_CHUNK]
-                ridx = np.zeros((len(chunk),), np.int32)
-                pidx = np.zeros((len(chunk),), np.int32)
-                dl = np.zeros((len(chunk),), np.int32)
-                for slot, n in enumerate(chunk):
-                    r, key = pairs[n]
-                    ridx[slot] = r
-                    pidx[slot] = pools.path_row[key]
-                    dl[slot] = deltas[n]
-                inflight.append((chunk, seqalign.banded_arena_scores(
-                    pools.arena, pools.cum_off, pools.base_ptr, pools.plen,
-                    pools.reads, ridx, pidx, dl, width=width,
-                    materialize=False)))
-            for chunk, out in inflight:
-                best, bi, bj, edge = (x.cpu().numpy() for x in out)
-                for slot, n in enumerate(chunk):
-                    if edge[slot] and not keep_edge:
-                        redo_edge.append(n)
-                    elif best[slot] < min_score and not keep_low:
-                        redo_low.append(n)
-                    else:
-                        # width > 0: banded traceback eligible at this width
-                        results[n] = (int(best[slot]), int(bi[slot]),
-                                      int(bj[slot]), width)
-            return redo_edge, redo_low
+            with span("align.scoring.rung"):
+                redo_edge, redo_low = [], []
+                # dispatch ALL chunks before fetching any result: device
+                # execution overlaps host chunk prep (the fetch is the
+                # synchronization point)
+                inflight = []
+                for c0 in range(0, len(idx_list), SCORE_CHUNK):  # bounded dispatch
+                    chunk = idx_list[c0:c0 + SCORE_CHUNK]
+                    ridx = np.zeros((len(chunk),), np.int32)
+                    pidx = np.zeros((len(chunk),), np.int32)
+                    dl = np.zeros((len(chunk),), np.int32)
+                    for slot, n in enumerate(chunk):
+                        r, key = pairs[n]
+                        ridx[slot] = r
+                        pidx[slot] = pools.path_row[key]
+                        dl[slot] = deltas[n]
+                    inflight.append((chunk, seqalign.banded_arena_scores(
+                        pools.arena, pools.cum_off, pools.base_ptr, pools.plen,
+                        pools.reads, ridx, pidx, dl, width=width,
+                        materialize=False)))
+                for chunk, out in inflight:
+                    best, bi, bj, edge = (x.cpu().numpy() for x in out)
+                    for slot, n in enumerate(chunk):
+                        if edge[slot] and not keep_edge:
+                            redo_edge.append(n)
+                        elif best[slot] < min_score and not keep_low:
+                            redo_low.append(n)
+                        else:
+                            # width > 0: banded traceback eligible at this width
+                            results[n] = (int(best[slot]), int(bi[slot]),
+                                          int(bj[slot]), width)
+                return redo_edge, redo_low
 
         results: Dict[int, Tuple[int, int, int, int]] = {}
         if irregular:
@@ -1140,7 +1145,7 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
                      for key in cand_lists[r][:open_k[r]]
                      if (r, key) not in dead_pairs]
         to_score = [p for p in pairs_all if p not in score_cache]
-        with _timed("scoring"):
+        with span("align.scoring"):
             scored = score_pairs(to_score)
         for n, p in enumerate(to_score):
             score_cache[p] = scored[n]
@@ -1164,17 +1169,23 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
                                          accepted[r], all_hits[r]):
                     continue
                 pl = None
-                with _timed("traceback"):
+                with span("align.traceback"):
                     if banded:  # band width used by the scorer (0 = full DP)
                         # banded traceback (O(Lr x band)); parity-gated —
                         # None falls through to the exact full-matrix walk
                         delta = cand_deltas.get((r, key))
                         if delta is not None:
-                            pl = seqalign.banded_traceback(
-                                rcodes, codes_of(key), bi, bj, delta, banded,
-                                v)
+                            with span("align.traceback.banded"):
+                                pl = seqalign.banded_traceback(
+                                    rcodes, codes_of(key), bi, bj, delta,
+                                    banded, v)
+                            count("align.traceback.banded_walks")
+                            if pl is None:
+                                count("align.traceback.declined")
                     if pl is None:
-                        pl = seqalign.traceback(rcodes, codes_of(key), bi, bj)
+                        with span("align.traceback.full"):
+                            pl = seqalign.traceback(rcodes, codes_of(key), bi, bj)
+                        count("align.traceback.full_walks")
                 if pl.score < min_score:
                     continue
                 shadowed = [h for (a, b), h in zip(accepted[r], all_hits[r])
@@ -1217,15 +1228,18 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
                   or _longest_uncovered(len(reads[r][1]),
                                         accepted[r]) >= min_score)]
     if retry:
-        with _timed("seeding"):
-            retry_anchors = anchors_with_diag_batch(
-                index, [encode_seq(reads[r][1]) for r in retry],
-                4 * params.max_anchors)
-            for i, r in enumerate(retry):
-                read_audits[r].hit("reads_retried_with_raised_caps")
-                cand_lists[r] = gen_candidates(
-                    r, reads[r][1], retry_anchors[i],
-                    4 * params.max_paths_per_anchor, CapAudit())
+        with span("align.seeding"):
+            with span("align.seeding.anchors"):
+                retry_anchors = anchors_with_diag_batch(
+                    index, [encode_seq(reads[r][1]) for r in retry],
+                    4 * params.max_anchors)
+            with span("align.seeding.candidates"):
+                for i, r in enumerate(retry):
+                    read_audits[r].hit("reads_retried_with_raised_caps")
+                    cand_lists[r] = gen_candidates(
+                        r, reads[r][1], retry_anchors[i],
+                        4 * params.max_paths_per_anchor, CapAudit())
+        count("align.candidates", sum(len(cand_lists[r]) for r in retry))
         placement_rounds([r for r in retry if cand_lists[r]])
 
     audit = CapAudit()
@@ -1419,7 +1433,8 @@ def run_graph_aligner(graph: Graph, read_files, out_file: str,
     if graph is None:
         print("align: missing input graph (-f)", file=sys.stderr)
         raise SystemExit(1)
-    reads = load_reads(read_files)
+    with span("align.read_fastq"):
+        reads = load_reads(read_files)
     params = PRESETS.get(preset)
     if params is None:
         # reference parity: unknown preset names abort (src/main.cpp:185-188)
@@ -1466,9 +1481,10 @@ def run_graph_aligner(graph: Graph, read_files, out_file: str,
     results = align_reads(graph, reads, params=params, device=device)
     n_hits = sum(len(h) for _, _, h in results)
     lg.verbose(f"Aligned {len(reads)} reads: {n_hits} records")
-    if out_file:
-        stream = OutputStream(out_file)
-        emit_gaf(results, stream.write)
-        stream.close()
-    else:
-        emit_gaf(results, sys.stdout.write)
+    with span("align.emit"):
+        if out_file:
+            stream = OutputStream(out_file)
+            emit_gaf(results, stream.write)
+            stream.close()
+        else:
+            emit_gaf(results, sys.stdout.write)

@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 from ..graph.model import Graph
 from ..ops.nw_path import Step
 from ..utils.log import lg
+from ..utils.profiling import count, span
 from . import evaluate
 from .alignments import AlignmentSet
 from .evaluate import evaluate_candidates
@@ -230,35 +231,37 @@ def search(graph: Graph,
     run), so all processes make the same frontier calls and so the same
     collectives."""
     out = out or sys.stdout
-    adj = graph.adjacency
-    name_to_id = graph.name_to_id
-    read_paths: List[List[Step]] = []
-    if alignments is not None:
-        read_paths = [[Step(i, o) for i, o in p] for p in alignments.paths_as_ids(name_to_id)]
-    from .evaluate import ReadBatch
-    read_batch = ReadBatch(read_paths, device)
-    dist_mode = None
-    if getattr(evaluate_fn, "read_sharded", False):
-        dist_mode = "read"
-    elif getattr(evaluate_fn, "frontier_sharded", False):
-        dist_mode = "frontier"
-    n_reads = read_batch.R
-    if dist_mode == "read":
-        from ..parallel.dist import allreduce_stats
-        n_reads = allreduce_stats([read_batch.R])[0]
-    if speculate is None:
-        # wider speculation cuts dispatch/sync count; its cost (scoring
-        # candidates that never pop) scales with the read batch, so go
-        # wide only when reads are few.  The global count: processes
-        # whose shards straddle 512 must still speculate alike.
-        speculate = 256 if n_reads <= 512 else 64
+    with span("search.load"):
+        adj = graph.adjacency
+        name_to_id = graph.name_to_id
+        read_paths: List[List[Step]] = []
+        if alignments is not None:
+            read_paths = [[Step(i, o) for i, o in p]
+                          for p in alignments.paths_as_ids(name_to_id)]
+        from .evaluate import ReadBatch
+        read_batch = ReadBatch(read_paths, device)
+        dist_mode = None
+        if getattr(evaluate_fn, "read_sharded", False):
+            dist_mode = "read"
+        elif getattr(evaluate_fn, "frontier_sharded", False):
+            dist_mode = "frontier"
+        n_reads = read_batch.R
+        if dist_mode == "read":
+            from ..parallel.dist import allreduce_stats
+            n_reads = allreduce_stats([read_batch.R])[0]
+        if speculate is None:
+            # wider speculation cuts dispatch/sync count; its cost (scoring
+            # candidates that never pop) scales with the read batch, so go
+            # wide only when reads are few.  The global count: processes
+            # whose shards straddle 512 must still speculate alike.
+            speculate = 256 if n_reads <= 512 else 64
 
-    table = NodeTable.from_file(node_file, name_to_id)
-    # unknown source/destination names default-insert uId 0, matching phmap
-    # operator[] (reference src/eval.cpp:127-128)
-    table.add(source, name_to_id.get(source, 0), 1)
-    table.add(destination, name_to_id.get(destination, 0), 1)
-    dest_uid = table.records[destination][0]
+        table = NodeTable.from_file(node_file, name_to_id)
+        # unknown source/destination names default-insert uId 0, matching phmap
+        # operator[] (reference src/eval.cpp:127-128)
+        table.add(source, name_to_id.get(source, 0), 1)
+        table.add(destination, name_to_id.get(destination, 0), 1)
+        dest_uid = table.records[destination][0]
 
     if use_native is not False and (evaluate_fn is None or dist_mode):
         asked = use_native
@@ -349,108 +352,120 @@ def search(graph: Graph,
     path_counter = 0
     steps = 0
     lg.verbose("Starting search")
-    while heap and steps < max_steps:
-        _, _, u = heapq.heappop(heap)
-        expansions = admissible_expansions(u)
-        if not expansions:
+    # work counters, added to the registry when the loop ends: frontier
+    # calls and candidates scored (speculation included)
+    frontier_calls = n_scored = 0
+    # search.driver: the loop's own host work; search.frontier: each call
+    # of evaluate_fn as the loop makes it (a distributed evaluator's
+    # exchange included)
+    with span("search.driver") as driver:
+        while heap and steps < max_steps:
+            _, _, u = heapq.heappop(heap)
+            expansions = admissible_expansions(u)
+            if not expansions:
+                steps += 1
+                continue
+            to_score = []
+            seen_keys = set()
+            for _, _, new_steps, _, cpid in expansions:
+                if cpid not in score_cache and cpid not in seen_keys:
+                    seen_keys.add(cpid)
+                    to_score.append((cpid, new_steps))
+            if speculate and to_score:
+                # descent speculation: when dispatching anyway, also score the
+                # next `spec_depth` GENERATIONS below this pop in the same
+                # batch — in a best-first descent the just-pushed children (not
+                # yet on the heap, invisible to the heap-top speculation) are
+                # usually the next pops.  Gated on to_score: running this on
+                # cache-hit pops would issue a tiny dispatch per pop and defeat
+                # the batching entirely.
+                frontier = [(u.visits, e) for e in expansions]
+                for _depth in range(spec_depth):
+                    nxt = []
+                    for visits, (v, name, new_steps, _, cpid) in frontier:
+                        if v.nid == dest_uid:
+                            continue
+                        child_visits = dict(visits)
+                        child_visits[name] = child_visits.get(name, 0) + 1
+                        child = PartialPath(new_steps, child_visits, pid=cpid)
+                        for g in admissible_expansions(child):
+                            gpid = g[4]
+                            if gpid not in score_cache and gpid not in seen_keys:
+                                seen_keys.add(gpid)
+                                to_score.append((gpid, g[2]))
+                            nxt.append((child_visits, g))
+                    frontier = nxt
+                    if len(to_score) > 4096:
+                        break
+            if speculate and to_score:
+                # speculation pool: sort a short PREFIX of the heap array instead
+                # of heapq.nsmallest over the whole heap (O(len(heap)) per pop,
+                # hostile at the reference's 100k-step cap).  The array prefix of
+                # a binary heap is biased toward the smallest elements, and a
+                # wrong guess only costs an unused cache entry — output order
+                # never depends on speculation.  Deterministic across processes:
+                # identical heap arrays everywhere.
+                pool = sorted(heap[:4 * speculate],
+                              key=operator.itemgetter(0, 1))
+                for _, _, spec in pool[:speculate]:
+                    for _, _, new_steps, _, cpid in admissible_expansions(spec):
+                        if cpid not in score_cache and cpid not in seen_keys:
+                            seen_keys.add(cpid)
+                            to_score.append((cpid, new_steps))
+            if to_score:
+                with driver.paused(), span("search.frontier"):
+                    results = evaluate_fn([s for _, s in to_score], read_batch,
+                                          filter_alignments=True)
+                frontier_calls += 1
+                n_scored += len(to_score)
+                if len(score_cache) > 200000:
+                    # evict the oldest half (dict preserves insertion order):
+                    # a wholesale clear() caused periodic full re-scoring
+                    # storms at the reference's default 100k-step cap.
+                    # Deterministic across processes — every process inserts
+                    # the same keys in the same order.
+                    from itertools import islice
+                    for k in list(islice(score_cache, len(score_cache) // 2)):
+                        del score_cache[k]
+                if len(exp_cache) > 200000:
+                    from itertools import islice
+                    for k in list(islice(exp_cache, len(exp_cache) // 2)):
+                        del exp_cache[k]
+                for (key, _), sc in zip(to_score, results):
+                    score_cache[key] = sc
+            scores = [score_cache[e[4]] for e in expansions]
+            for (v, name, new_steps, n_uniques, cpid), sc in zip(expansions,
+                                                                 scores):
+                alt = sc.bad - sc.good - n_uniques
+                if v.nid != dest_uid:
+                    new_visits = dict(u.visits)
+                    new_visits[name] = new_visits.get(name, 0) + 1
+                    heapq.heappush(heap, (alt, seq,
+                                          PartialPath(new_steps, new_visits,
+                                                      pid=cpid)))
+                    seq += 1
+                else:
+                    path_counter += 1
+                    path_nodes: Dict[int, int] = {}
+                    for s in new_steps:
+                        path_nodes[s.id] = path_nodes.get(s.id, 0) + 1
+                    hamiltonian = table.check_hamiltonian(path_nodes, len(new_steps))
+                    print_path = False
+                    if n_uniques >= min_nodes and (
+                            best_uniques < n_uniques
+                            or (best_uniques == n_uniques and best_alt > alt)):
+                        best_alt = alt
+                        best_uniques = n_uniques
+                        print_path = True
+                    if return_all_paths or print_path:
+                        path_str = ",".join(graph.segment(s.id).name + s.orientation
+                                            for s in new_steps)
+                        out.write(f"{path_counter}\t{sc.bad}\t{sc.good}\t{alt}\t"
+                                  f"{len(new_steps)}\t{n_uniques}\t"
+                                  f"{'T' if hamiltonian else 'F'}\t{path_str}\n")
             steps += 1
-            continue
-        to_score = []
-        seen_keys = set()
-        for _, _, new_steps, _, cpid in expansions:
-            if cpid not in score_cache and cpid not in seen_keys:
-                seen_keys.add(cpid)
-                to_score.append((cpid, new_steps))
-        if speculate and to_score:
-            # descent speculation: when dispatching anyway, also score the
-            # next `spec_depth` GENERATIONS below this pop in the same
-            # batch — in a best-first descent the just-pushed children (not
-            # yet on the heap, invisible to the heap-top speculation) are
-            # usually the next pops.  Gated on to_score: running this on
-            # cache-hit pops would issue a tiny dispatch per pop and defeat
-            # the batching entirely.
-            frontier = [(u.visits, e) for e in expansions]
-            for _depth in range(spec_depth):
-                nxt = []
-                for visits, (v, name, new_steps, _, cpid) in frontier:
-                    if v.nid == dest_uid:
-                        continue
-                    child_visits = dict(visits)
-                    child_visits[name] = child_visits.get(name, 0) + 1
-                    child = PartialPath(new_steps, child_visits, pid=cpid)
-                    for g in admissible_expansions(child):
-                        gpid = g[4]
-                        if gpid not in score_cache and gpid not in seen_keys:
-                            seen_keys.add(gpid)
-                            to_score.append((gpid, g[2]))
-                        nxt.append((child_visits, g))
-                frontier = nxt
-                if len(to_score) > 4096:
-                    break
-        if speculate and to_score:
-            # speculation pool: sort a short PREFIX of the heap array instead
-            # of heapq.nsmallest over the whole heap (O(len(heap)) per pop,
-            # hostile at the reference's 100k-step cap).  The array prefix of
-            # a binary heap is biased toward the smallest elements, and a
-            # wrong guess only costs an unused cache entry — output order
-            # never depends on speculation.  Deterministic across processes:
-            # identical heap arrays everywhere.
-            pool = sorted(heap[:4 * speculate],
-                          key=operator.itemgetter(0, 1))
-            for _, _, spec in pool[:speculate]:
-                for _, _, new_steps, _, cpid in admissible_expansions(spec):
-                    if cpid not in score_cache and cpid not in seen_keys:
-                        seen_keys.add(cpid)
-                        to_score.append((cpid, new_steps))
-        if to_score:
-            results = evaluate_fn([s for _, s in to_score], read_batch,
-                                  filter_alignments=True)
-            if len(score_cache) > 200000:
-                # evict the oldest half (dict preserves insertion order):
-                # a wholesale clear() caused periodic full re-scoring
-                # storms at the reference's default 100k-step cap.
-                # Deterministic across processes — every process inserts
-                # the same keys in the same order.
-                from itertools import islice
-                for k in list(islice(score_cache, len(score_cache) // 2)):
-                    del score_cache[k]
-            if len(exp_cache) > 200000:
-                from itertools import islice
-                for k in list(islice(exp_cache, len(exp_cache) // 2)):
-                    del exp_cache[k]
-            for (key, _), sc in zip(to_score, results):
-                score_cache[key] = sc
-        scores = [score_cache[e[4]] for e in expansions]
-        for (v, name, new_steps, n_uniques, cpid), sc in zip(expansions,
-                                                             scores):
-            alt = sc.bad - sc.good - n_uniques
-            if v.nid != dest_uid:
-                new_visits = dict(u.visits)
-                new_visits[name] = new_visits.get(name, 0) + 1
-                heapq.heappush(heap, (alt, seq,
-                                      PartialPath(new_steps, new_visits,
-                                                  pid=cpid)))
-                seq += 1
-            else:
-                path_counter += 1
-                path_nodes: Dict[int, int] = {}
-                for s in new_steps:
-                    path_nodes[s.id] = path_nodes.get(s.id, 0) + 1
-                hamiltonian = table.check_hamiltonian(path_nodes, len(new_steps))
-                print_path = False
-                if n_uniques >= min_nodes and (
-                        best_uniques < n_uniques
-                        or (best_uniques == n_uniques and best_alt > alt)):
-                    best_alt = alt
-                    best_uniques = n_uniques
-                    print_path = True
-                if return_all_paths or print_path:
-                    path_str = ",".join(graph.segment(s.id).name + s.orientation
-                                        for s in new_steps)
-                    out.write(f"{path_counter}\t{sc.bad}\t{sc.good}\t{alt}\t"
-                              f"{len(new_steps)}\t{n_uniques}\t"
-                              f"{'T' if hamiltonian else 'F'}\t{path_str}\n")
-        steps += 1
+    count("search.frontier_calls", frontier_calls)
+    count("search.candidates_scored", n_scored)
     if steps >= max_steps:
         out.write(f"Reached maximum number of steps ({steps})\n")
     lg.verbose("Search completed")

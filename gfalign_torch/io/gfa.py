@@ -25,6 +25,7 @@ import re
 from typing import Iterable, List, Tuple
 
 from ..graph.model import Gap, GfaPath, Graph, Link
+from ..utils.profiling import span
 from .stream import iter_lines
 
 
@@ -139,17 +140,19 @@ def read_gfa(path: str) -> Graph:
     gz in memory -- the role of gfalibs' gz-capable StreamObj + threaded
     readGFA, reference src/input-gfalign.cpp:42-45); stdin takes the line
     parser above, which is also the oracle when `native.available()` is
-    false.  Both produce identical graphs (tests/test_torch_native.py)."""
-    if path != "-":
-        import pathlib
+    false.  Both produce identical graphs (tests/test_torch_native.py).
+    The span io.read_gfa."""
+    with span("io.read_gfa"):
+        if path != "-":
+            import pathlib
 
-        from . import native
+            from . import native
 
-        if pathlib.Path(path).is_file() and native.available():
-            graph = _read_gfa_native(path)
-            if graph is not None:
-                return graph
-    return parse_gfa_lines(iter_lines(path))
+            if pathlib.Path(path).is_file() and native.available():
+                graph = _read_gfa_native(path)
+                if graph is not None:
+                    return graph
+        return parse_gfa_lines(iter_lines(path))
 
 
 def _read_gfa_native(path: str) -> Graph:

@@ -14,8 +14,9 @@ frontier call of the search then uploads only the candidates.
 265-266: the packed word fits when the 8-padded candidate width plus the
 read width is below 8192), checks device, dtype, shape and contiguity,
 launches on PyTorch's current stream, and counts its launches in
-`LAUNCHES`.  It never falls back to the plain version: a CUDA tensor
-launches a kernel or raises.  The launch geometry is chosen by the small
+`LAUNCHES` (the registry's counters kernels.nw.<kernel>).  It never
+falls back to the plain version: a CUDA tensor launches a kernel or
+raises.  The launch geometry is chosen by the small
 pure functions below (`strip_width`, `candidate_chunk`, `wide_plan`,
 `split_layout`), which run anywhere.
 
@@ -33,6 +34,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 from .nw_path import rc_keys_device
 
@@ -46,7 +48,7 @@ STAGE_WORDS = 48 * 1024 // 4  # shared-memory words for a K1 candidate chunk
 SCRATCH_BYTES = 256 << 20    # hand-over scratch per launch (reads wider than a strip)
 SPLIT_MAX_THREADS = {4: 1024, 8: 512, 16: 512}   # K2 threads a block, by columns a thread
 
-LAUNCHES = {"packed": 0, "split": 0}
+LAUNCHES = profiling.view(profiling.COUNTS, "kernels.nw.", ("packed", "split"))
 
 
 def uses_packed(n: int, m: int) -> bool:
@@ -219,7 +221,7 @@ def _launch_packed(lib, a_keys, a_len, op: ReadOperand, out, stream) -> None:
             raise RuntimeError(
                 f"nw_fwd_packed launch failed: cudaError {err} (C={cc}, n={n}, "
                 f"rows={op.Rp}, m={op.m}, blocks {blk0}+{nblk}, chunk={chunk})")
-        LAUNCHES["packed"] += 1
+        profiling.count("kernels.nw.packed")
 
     wide = op.wide_blocks            # the longest rows come first
     if wide:
@@ -265,7 +267,7 @@ def _launch_split(lib, a_keys, a_len, op: ReadOperand, stream) -> torch.Tensor:
             raise RuntimeError(
                 f"nw_fwd_split launch failed: cudaError {err} (C={cc}, n={n}, "
                 f"rows={op.Rp}, m={op.m}, K={K}, T={T})")
-        LAUNCHES["split"] += 1
+        profiling.count("kernels.nw.split")
         if part is not out:
             out[:, c0:c0 + cc] = part
     return out[0] if op.ns == 1 else torch.maximum(out[0], out[1])

@@ -24,6 +24,8 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 MATCH = 1
 MISMATCH = -2
 GAP = -3
@@ -44,8 +46,10 @@ PAD = 5       # padding sentinel; code 4 = N (aligns as mismatch)
 _BLOCK = -1000  # padding must never extend an alignment
 _BIG = 1 << 30
 
-# Tracebacks by route: the native C++ walks or the numpy oracles below.
-TRACEBACK_CALLS = {"native": 0, "python": 0}
+# Tracebacks by route: the native C++ walks or the numpy oracles below
+# (the registry's counters align.traceback.<route>).
+TRACEBACK_CALLS = profiling.view(profiling.COUNTS, "align.traceback.",
+                                 ("native", "python"))
 
 # Plain-version working set: local_forward_ref keeps its (R, P, Lp + 1) rows
 # in read chunks of at most this many elements.
@@ -411,14 +415,14 @@ def traceback(read: np.ndarray, path: np.ndarray,
     from ..io import native
 
     if native.available():
-        TRACEBACK_CALLS["native"] += 1
+        profiling.count("align.traceback.native")
         res = native.local_traceback(read, path, end_i, end_j,
                                      MATCH, MISMATCH, GAP, PAD, _BLOCK)
         if res is not None:
             score, qstart, pstart, matches, nm, ops = res
             return Placement(score, qstart, end_i, pstart, end_j,
                              _runs(ops), matches, nm)
-    TRACEBACK_CALLS["python"] += 1
+    profiling.count("align.traceback.python")
     return _traceback_py(read, path, end_i, end_j)
 
 
@@ -440,12 +444,12 @@ def banded_traceback(read: np.ndarray, path: np.ndarray,
     from ..io import native
 
     if native.available():
-        TRACEBACK_CALLS["native"] += 1
+        profiling.count("align.traceback.native")
         res = native.banded_local_traceback(read, path, end_i, end_j, delta,
                                             width, expected, MATCH, MISMATCH,
                                             GAP, PAD, _BLOCK)
     else:
-        TRACEBACK_CALLS["python"] += 1
+        profiling.count("align.traceback.python")
         res = _banded_traceback_py(read, path, end_i, end_j, delta, width,
                                    expected)
     if res is None:

@@ -5,7 +5,8 @@ K3 (`sa_banded_fwd`) replaces gfalign_tpu/ops/seqalign_pallas.py
 K4 (`sa_pairs_fwd`, read i against path i) and K5 (`sa_local_fwd`, every
 read against every path) replace `_kernel_factory`.  The wrappers check
 device, dtype, shape and contiguity, launch on PyTorch's current stream
-without synchronising, and count their launches in `LAUNCHES`.  They never
+without synchronising, and count their launches in `LAUNCHES` (the
+registry's counters kernels.seqalign.<kernel>).  They never
 fall back to the plain versions of ops/seqalign.py: a CUDA tensor launches a
 kernel or raises.  The launch geometry is chosen by the small pure
 functions `banded_layout` and `pairs_layout`, which run anywhere; the
@@ -25,13 +26,15 @@ from typing import Tuple
 
 import torch
 
+from ..utils import profiling
 from . import cuda_build
 
 SCRATCH_BYTES = 1 << 30   # K4 workspace / K5 strip hand-over per launch
 HOST_SMS = 132            # SMs assumed by the host build (an H100's count)
 GROUP_MAX = 32            # K3 threads a pair in the group kernel (one warp)
 
-LAUNCHES = {"banded": 0, "pairs": 0, "cross": 0}
+LAUNCHES = profiling.view(profiling.COUNTS, "kernels.seqalign.",
+                         ("banded", "pairs", "cross"))
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -134,7 +137,7 @@ def _launch_banded(lib, arena, cum_off, base_ptr, plen, read_pool, read_idx,
         raise RuntimeError(f"sa_banded_fwd launch failed: cudaError {err} "
                            f"(N={N}, lr={lr}, width={width}, S={S}, "
                            f"lanes={lanes}, group={group})")
-    LAUNCHES["banded"] += 1
+    profiling.count("kernels.seqalign.banded")
     return out
 
 
@@ -203,7 +206,7 @@ def _launch_pairs(lib, read_codes, path_codes, stream) -> torch.Tensor:
             raise RuntimeError(f"sa_pairs_fwd launch failed: cudaError {err} "
                                f"(N={n}, lr={lr}, lp={lp}, K={K}, T={T}, "
                                f"parts={parts})")
-        LAUNCHES["pairs"] += 1
+        profiling.count("kernels.seqalign.pairs")
         if part is not out:
             out[:, r0:r0 + n] = part
     return out
@@ -236,7 +239,7 @@ def _launch_cross(lib, read_codes, path_codes, stream) -> torch.Tensor:
         if err != 0:
             raise RuntimeError(f"sa_local_fwd launch failed: cudaError {err} "
                                f"(R={n}, P={P}, lr={lr}, lp={lp})")
-        LAUNCHES["cross"] += 1
+        profiling.count("kernels.seqalign.cross")
         if part is not out:
             out[:, r0:r0 + n] = part
     return out

@@ -108,3 +108,21 @@ def test_each_rank_writes_its_own_trace(search_argv, tmp_path):
     assert len(files) == 2
     for f in files:
         assert json.loads(f.read_text())["traceEvents"]
+
+
+def test_a_rank_the_mode_leaves_idle_writes_no_trace(search_argv, tmp_path):
+    """A decorated evalGFA runs on rank 0 alone: rank 1 returns before the
+    trace opens, so one file is written, by the rank that did the work."""
+    trace_dir = tmp_path / "traces"
+    argv = ["evalGFA", "-f", search_argv[2], "-g", search_argv[4], "-o",
+            str(tmp_path / "out.gfa")]
+    got = dist.launch_local(["-m", "gfalign_torch", *argv], 2, 120, tmp_path,
+                            cwd=ROOT, env={"PYTHONPATH": str(ROOT),
+                                           "GFALIGN_TORCH_DEVICE": "cpu",
+                                           "GFALIGN_TORCH_TRACE": str(trace_dir)})
+    assert [rc for rc, _, _ in got] == [0, 0], [err[-800:] for _, _, err in got]
+    assert (tmp_path / "out.gfa").stat().st_size > 0
+    files = list(trace_dir.glob("gfalign_torch.*.json"))
+    assert len(files) == 1
+    names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
+    assert {"cli.evalGFA", "io.read_gfa", "io.read_gaf"} <= names
