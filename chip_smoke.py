@@ -45,6 +45,17 @@ Phases (each prints a line; any failure raises and exits non-zero):
      deltas, N codes, all-PAD rows, multi-step paths), then at phase 10's
      shapes synthesised without an align run (bench_seqalign), timed with
      the first design's recorded times beside;
+ 8b. the exact full-matrix walk (sa_walk) against the native host walk,
+     bit-exact, one walk launch a walk: every small case of
+     bench_seqalign.WALK_CASES and three CLR-sized pairs (WALK_CLR: 20-30 kb
+     reads at 87% against 40-60 kb paths, one with a PAD stretch, each
+     ending at K4's best cell), and its walk codes against the plain
+     version's on the largest pair's first 1,000 rows (the differences
+     counted and printed); at those sizes the kernel's time (CUDA
+     events; the forward pass and the walk apart, by torch.profiler), the
+     walk as the align mode calls it (upload, launch, copy back; host
+     clock), the host walk's time, the bound and the plain version (its
+     first rows, scaled);
   9. `align` end to end through gfalign_torch.cli.main.main on CUDA, three
      runs, each GAF equal to its golden in tests/data/ (md5 and record
      count) with the launch counters zeroed before and read after: the
@@ -52,9 +63,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      make_workload(seed=0) and all 10,000 of its reads, 2-8 kb, hifi;
      must launch K3), a small seeded run whose hand-made reads end on the
      band edge at both band widths (must launch K4), and the exhaustive
-     engine on a 34-segment graph (must launch K5); every traceback of
-     every run must go through the native library (ops/seqalign's
-     TRACEBACK_CALLS: no Python traceback);
+     engine on a 34-segment graph (must launch K5); every banded traceback
+     of every run must go through the native library and every full-matrix
+     one through the walk kernel (ops/seqalign's TRACEBACK_CALLS: no Python
+     traceback);
  10. K3, K4 and K5 timed against their plain versions at those runs' own
      shapes: K3 at the seeded run's largest chunk at widths 128 and 512, K4
      at the largest bucket launched, K5 at the exhaustive run's first call;
@@ -102,9 +114,9 @@ each read's last non-PAD char (the kernels skip the rest).
 line), and `--host-ladder`, `--trace` and `--dryrun` phases 1, 2 and 12,
 13 or 14 alone (no result line either); `python3 chip_smoke.py --nw` stops after phase 4 (build, K1 and K2 against
 their plain versions: under a minute) and prints no result line;
-`python3 chip_smoke.py --sa` runs phases 1, 2 and 8 only (build, K3-K5
-against their plain versions and at the synthesised phase-10 shapes: about
-a minute), no result line either.
+`python3 chip_smoke.py --sa` runs phases 1, 2, 8 and 8b only (build, K3-K5
+against their plain versions and at the synthesised phase-10 shapes, the
+walk: about two minutes), no result line either.
 
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Details also go to chiprun_out/chip_smoke.json.
@@ -162,6 +174,11 @@ INT32_ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # block-per-pair K3, which still serves bands over 512 lanes and those
 # that are not multiples of 16, spends 16.
 OPS_PER_CELL = {"packed": 5, "split": 8, "banded": 7, "pairs": 5, "cross": 9}
+# The walk's bound counts 8 int32 operations a cell, as the benchmark's
+# roofline counts a DP cell (benchmark/roofline.py); its row loop spends about
+# twice that, the recurrence (K4's 4 without the key) and the walk code (three
+# compares, three selects, the floor's select, the shift and the or).
+WALK_OPS_PER_CELL = 8
 # K1 and K2 as first ported (one thread per pair, a block per candidate x 128
 # reads), timed by this script at the same shapes on an NVIDIA H100 80GB HBM3
 # at 700.00 W (PERF.md section 6 keeps the record), then with the host's
@@ -186,6 +203,8 @@ KERNELS = {
                   replaces="gfalign_tpu/ops/seqalign_pallas.py:57 via :445"),
     "cross": dict(name="sa_local_fwd cross product (K5)",
                   replaces="gfalign_tpu/ops/seqalign_pallas.py:57 via :176"),
+    "walk": dict(name="sa_walk (the exact full-matrix traceback)",
+                 replaces="none (the JAX package walks on the host)"),
 }
 
 
@@ -325,15 +344,17 @@ def phase_build():
 
 
 def sass_per_cell(cuda_build):
-    """Machine instructions per DP cell of every K1, K2, K3 and K4 row loop,
+    """Machine instructions per DP cell of every K1, K2, K3, K4 and walk row loop,
     read off the built libraries.  K1 and K2 spend two max-type
     instructions on a cell (K1 two add-then-max; K2 a max and an
     add-then-max), so an innermost loop's count of them gives its cells.
     A K3 group kernel's row is 2 + log2(G) shuffles over L cells a thread,
-    and a K4 wavefront step one shuffle over K cells (L, G and K from the
+    and a K4 or walk wavefront step one shuffle over K cells (L, G and K from the
     kernel's template arguments), so there the loop's shuffles give its
     cells.  'alu' leaves out loads, stores, branches, barriers and
     shuffles."""
+    from gfalign_torch.ops.seqalign_cuda import WALK_K
+
     not_alu = ("LD", "ST", "BRA", "BAR", "SHFL", "BSSY", "BSYNC", "NOP", "WARPSYNC",
                "EXIT", "CALL", "RET", "ATOM", "RED")
     out = []
@@ -359,6 +380,9 @@ def sass_per_cell(cuda_build):
             elif pairs:
                 cells = shfl * int(pairs.group(1))
                 kernel = f"pairs_fwd<K={pairs.group(1)}>"
+            elif "walk_fwd_kernel" in fn:
+                cells = shfl * WALK_K
+                kernel = f"walk_fwd<K={WALK_K}>"
             else:
                 continue
             if cells < 2:
@@ -920,6 +944,119 @@ def phase_seqalign_synthetic():
     return out
 
 
+def phase_walk():
+    """Phase 8b: the walk kernel (sa_walk, through seqalign.traceback on
+    CUDA) against the native host walk (the same call on the CPU), on the
+    small cases and the CLR-sized pairs of bench_seqalign, and its walk
+    codes against the plain version's on the largest pair's first rows;
+    timed at the CLR sizes.  Returns each CLR pair's readings and, under
+    "faults", what differed: the largest difference of score, qstart,
+    pstart, matches and nm, the ops that differ (the longer string's extra
+    ops included) and the codes that differ (all 0, or the phase raises)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfalign_torch.bench_seqalign import WALK_CASES, WALK_CLR, clr_pair, walk_case
+    from gfalign_torch.ops import seqalign, seqalign_cuda
+
+    dev = torch.device("cuda")
+    faults = dict(max_abs_err=0, ops_differ=0, codes_differ=0, walks=0)
+
+    def walk(read, path, ei, ej):
+        """(placement, wall s on CUDA, wall s of the host walk); their
+        differences go into `faults`."""
+        before = dict(seqalign_cuda.LAUNCHES), dict(seqalign.TRACEBACK_CALLS)
+        t0 = time.time()
+        got = seqalign.traceback(read, path, ei, ej, dev)
+        wall = time.time() - t0
+        if (seqalign_cuda.LAUNCHES["walk"] != before[0]["walk"] + 1
+                or seqalign.TRACEBACK_CALLS["cuda"] != before[1]["cuda"] + 1):
+            raise RuntimeError("walk: not one walk launch for one walk on CUDA")
+        t0 = time.time()
+        want = seqalign.traceback(read, path, ei, ej)
+        host = time.time() - t0
+        fields = ("score", "qstart", "qend", "pstart", "pend", "matches", "nm")
+        err = max(abs(getattr(got, f) - getattr(want, f)) for f in fields)
+        ops = ["".join(op * n for n, op in pl.cigar) for pl in (got, want)]
+        differ = (sum(a != b for a, b in zip(*ops))
+                  + abs(len(ops[0]) - len(ops[1])))
+        faults["max_abs_err"] = max(faults["max_abs_err"], err)
+        faults["ops_differ"] += differ
+        faults["walks"] += 1
+        return got, wall, host
+
+    t0 = time.time()
+    for case in WALK_CASES:
+        walk(*walk_case(case))
+    log(f"phase 8b walk: {len(WALK_CASES)} small cases against the host walk in "
+        f"{time.time() - t0:.1f} s")
+    rng = np.random.default_rng(13)
+    out = {}
+    for name, (lr, lp, pad) in WALK_CLR.items():
+        read, path = clr_pair(rng, lr, lp, pad)
+        _, bi, bj = seqalign.batched_pair_scores(
+            torch.from_numpy(read[None]).to(dev), torch.from_numpy(path[None]).to(dev))
+        ei, ej = int(bi[0]), int(bj[0])
+        pl, wall, host = walk(read, path, ei, ej)
+        walls = [wall]
+        for _ in range(2):
+            t0 = time.time()
+            seqalign.traceback(read, path, ei, ej, dev)
+            walls.append(time.time() - t0)
+        walls.sort()
+        r_d = torch.from_numpy(read[:ei].copy()).to(dev)
+        p_d = torch.from_numpy(path[:ej].copy()).to(dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        run = lambda: seqalign_cuda._launch_walk(seqalign_cuda._lib(), r_d, p_d, stream)
+        ms = time_ms(run, reps=3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        by_kernel = {re.search(r"walk_\w+", e.key).group(0):
+                     e.device_time_total / 1e3 / e.count
+                     for e in prof.key_averages() if "walk_" in e.key}
+        cells = ei * ej
+        res = dict(rows=ei, cols=ej, cells=cells, score=pl.score,
+                   qstart=pl.qstart, pstart=pl.pstart, ops=sum(n for n, _ in pl.cigar),
+                   ms=ms, kernels_ms=by_kernel, walk_ms=walls[1] * 1e3,
+                   host_ms=host * 1e3, code_bytes=cells // 4,
+                   bound_ms=cells * WALK_OPS_PER_CELL / INT32_ALU_OPS_PER_S * 1e3,
+                   bound_by="operations",
+                   layout=seqalign_cuda.walk_layout(ej))
+        out[name] = res
+        log(f"phase 8b walk {name}: {ei} x {ej} = {cells / 1e9:.3f} G cells, "
+            f"score {pl.score}, {res['ops']} ops from ({pl.qstart}, {pl.pstart}); "
+            f"kernel {ms:.3f} ms "
+            f"({', '.join(f'{k} {v:.3f}' for k, v in by_kernel.items())}), "
+            f"as the align mode calls it {res['walk_ms']:.2f} ms, host walk "
+            f"{res['host_ms']:.0f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({WALK_OPS_PER_CELL} ops a cell); (threads, blocks) {res['layout']}")
+    # the plain version on the last (largest) pair's first rows, timed and
+    # scaled, and its codes against the kernel's on those rows
+    cut, last = 1000, out[name]
+    t0 = time.time()
+    _, plain = seqalign.walk_codes_ref(torch.from_numpy(read[:cut].copy()),
+                                       torch.from_numpy(path[:last["cols"]].copy()))
+    last["plain_ms"] = (time.time() - t0) * 1e3 * last["rows"] / cut
+    _, codes = run()
+    band = codes.view(-1, last["rows"])[:, :cut].contiguous().cpu()
+    got = seqalign_cuda.walk_codes(band, cut, last["cols"])
+    faults["codes_differ"] = int((got != plain.numpy()[1:, 1:]).sum())
+    faults["codes_compared"] = got.size
+    log(f"phase 8b walk plain version: {last['plain_ms']:.0f} ms at {name} "
+        f"(its first {cut} rows, scaled); its codes on those rows against the "
+        f"kernel's: {faults['codes_differ']} of {got.size} differ")
+    log(f"phase 8b walk against the host walk: {faults['walks']} walks, largest "
+        f"difference of score, ends, matches and nm {faults['max_abs_err']}, "
+        f"{faults['ops_differ']} ops differ")
+    if faults["max_abs_err"] or faults["ops_differ"] or faults["codes_differ"]:
+        raise RuntimeError(f"walk: the kernel differs from the host walk or the "
+                           f"plain version: {faults}")
+    out["faults"] = faults
+    return out
+
+
 class AlignRecorder:
     """Wraps the align scorers' entry points for one run: keeps the inputs
     of the largest call of each kind (for phase 10) and CUDA events around
@@ -982,6 +1119,7 @@ def run_align(name, runs, golden, workdir, tag="device", device=None):
     from gfalign_torch.cli.main import main
     from gfalign_torch.engine import graph_align
     from gfalign_torch.ops import seqalign, seqalign_cuda
+    from gfalign_torch.utils import profiling
 
     gfa, reads, preset = runs[name]
     for path in (gfa, reads):
@@ -995,6 +1133,7 @@ def run_align(name, runs, golden, workdir, tag="device", device=None):
         graph_align.PHASE_SECONDS[k] = 0.0
     for k in seqalign.TRACEBACK_CALLS:
         seqalign.TRACEBACK_CALLS[k] = 0
+    walks = profiling.snapshot()
     rec = AlignRecorder()
     buf, err = io.StringIO(), io.StringIO()
     t0 = time.time()
@@ -1005,11 +1144,20 @@ def run_align(name, runs, golden, workdir, tag="device", device=None):
     secs = time.time() - t0
     launches = dict(seqalign_cuda.LAUNCHES)
     tracebacks = dict(seqalign.TRACEBACK_CALLS)
+    walks = profiling.since(walks)["counts"]
     if rc != 0:
         raise RuntimeError(f"align ({name}) exited {rc}: {err.getvalue()[-400:]}")
-    if tracebacks["python"] or not tracebacks["native"]:
-        raise RuntimeError(f"align ({name}) tracebacks {tracebacks}: each must go "
-                           f"through the native library")
+    # banded walks native; full walks on the card (the exhaustive engine
+    # walks every placement in full)
+    banded = walks.get("align.traceback.banded_walks", 0)
+    full = walks.get("align.traceback.full_walks", 0)
+    if (tracebacks["python"] or tracebacks["native"] != banded
+            or tracebacks["cuda"] != launches["walk"]
+            or (name != "exhaustive" and tracebacks["cuda"] != full)
+            or tracebacks["native"] + tracebacks["cuda"] == 0):
+        raise RuntimeError(f"align ({name}) tracebacks {tracebacks}, walk launches "
+                           f"{launches['walk']}, banded {banded}, full {full}: banded "
+                           f"walks must be native and full ones on the card")
     if not buf.getvalue().startswith(f"Invoking: gfalign-tpu-align -p {preset} "):
         raise RuntimeError(f"align ({name}) did not echo its invocation")
     got = digest(out_gaf.read_bytes())
@@ -1502,9 +1650,10 @@ def main(only: str = "") -> int:
     if only == "sa":
         dump_details(dict(card=smi, device=name, build_s=build_s, sass=sass,
                           seqalign_ragged=phase_seqalign_ragged(gen),
-                          seqalign_synthetic=phase_seqalign_synthetic()),
+                          seqalign_synthetic=phase_seqalign_synthetic(),
+                          walk=phase_walk()),
                      "chip_smoke_sa.json")
-        log(f"phases 1, 2 and 8 passed in {time.time() - t_start:.1f} s (--sa: "
+        log(f"phases 1, 2, 8 and 8b passed in {time.time() - t_start:.1f} s (--sa: "
             f"the other phases were not run, so no result line is printed)")
         return 0
     # the phases that also run alone, after phases 1 and 2
@@ -1539,6 +1688,7 @@ def main(only: str = "") -> int:
         profile = phase_profile(search_argv, search["window_s"])
         sa_ragged = phase_seqalign_ragged(gen)
         sa_synthetic = phase_seqalign_synthetic()
+        walk = phase_walk()
         align, recs = phase_align(workdir, wl)
         sa_main = phase_seqalign_main_shapes(recs)
         distributed = phase_distributed(workdir, wl, paths, align["seeded"]["seconds"])
@@ -1550,7 +1700,8 @@ def main(only: str = "") -> int:
                 "split": long_paths["launches"]["split"],
                 "banded": align["seeded"]["launches"]["banded"],
                 "pairs": align["band_edge"]["launches"]["pairs"],
-                "cross": align["exhaustive"]["launches"]["cross"]}
+                "cross": align["exhaustive"]["launches"]["cross"],
+                "walk": sum(run["launches"]["walk"] for run in align.values())}
     table = []
     for kind, res, source in (("packed", k1, "nw_path"), ("split", k2, "nw_path"),
                               ("banded", sa_main["banded_128"], "seqalign"),
@@ -1562,11 +1713,21 @@ def main(only: str = "") -> int:
                           ms=res["ms"], plain_ms=res["plain_ms"],
                           bound_ms=res["bound_ms"], bound_by=res["bound_by"],
                           library_ms=None))
+    clr_walk = max((v for k, v in walk.items() if k != "faults"),
+                   key=lambda v: v["cells"])   # the largest CLR pair, timed plain too
+    table.append(dict(KERNELS["walk"], route="cuda",
+                      source="gfalign_torch/csrc/seqalign.cu", launches=launches["walk"],
+                      max_abs_err=walk["faults"]["max_abs_err"],
+                      ops_differ=walk["faults"]["ops_differ"],
+                      codes_differ=walk["faults"]["codes_differ"], ms=clr_walk["ms"],
+                      plain_ms=clr_walk["plain_ms"],
+                      bound_ms=clr_walk["bound_ms"], bound_by="operations",
+                      host_ms=clr_walk["host_ms"], library_ms=None))
     details = dict(card=smi, device=name, build_s=build_s, sass=sass, k1_bench=k1_bench,
                    k2_check=k2_check, search=search, evalpath=evalpath,
                    filtered_search=filtered_search,
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
-                   seqalign_ragged=sa_ragged, seqalign_synthetic=sa_synthetic,
+                   seqalign_ragged=sa_ragged, seqalign_synthetic=sa_synthetic, walk=walk,
                    align=align, seqalign_main=sa_main, distributed=distributed,
                    host_ladder=host_ladder, trace=trace, dryrun=dryrun,
                    ops_per_cell=OPS_PER_CELL, seconds=time.time() - t_start)

@@ -1,8 +1,9 @@
-"""Times K3 and K4 (csrc/seqalign.cu) on the card at the shapes the seeded
-and band-edge `align` runs give them, synthesised here so that no 300 s
+"""Times K3, K4 and the walk (csrc/seqalign.cu) on the card at the shapes
+the seeded and band-edge `align` runs and clr.align's fallback walks give
+them, synthesised here so that no 300 s
 align run is needed, under other launch geometries than the wrapper's own,
 to check the rules of ops/seqalign_cuda.py (`banded_layout`,
-`pairs_layout`):
+`pairs_layout`, `walk_layout`):
 
     python -m gfalign_torch.bench_seqalign
 
@@ -17,7 +18,8 @@ sends them, and at more pairs (32, 64, 128 and 256 of 4,096 x 8,192,
 1,024 of 2,048 x 4,096, all live: each side of pairs_layout's switch from
 split pairs to one block a pair), as a chunk of
 graph_align.score_pairs_full can hold when many band-edge pairs survive a
-round.  Every variant is checked against the default geometry's outputs,
+round; the walk at WALK_CLR's three CLR-sized pairs (20-30 kb reads at 87%
+against 40-60 kb paths) under one to eight warps a block.  Every variant is checked against the default geometry's outputs,
 and the default against the plain version on a few pairs.  Needs a CUDA
 device; prints one line per variant with the card's name and power limit
 first.
@@ -51,6 +53,15 @@ K4_SHAPES = {"16 pairs 4096 x 8192": (16, 4096, 8192, 3000, 7000, 4),
              "256 pairs 4096 x 8192": (256, 4096, 8192, 3000, 7000, 0),
              "1024 pairs 2048 x 4096": (1024, 2048, 4096, 1500, 3500, 0)}
 K4_PLAIN_PAIRS = 16                 # pairs the plain version checks
+# The exact full-matrix walk (sa_walk) at the sizes of clr.align's fallback
+# walks: name -> (read template length, path length, PAD bases mid-read)
+WALK_CLR = {"clr 20 kb x 40 kb": (20000, 40000, 0),
+            "clr 25 kb x 50 kb, a PAD stretch": (25000, 50000, 800),
+            "clr 30 kb x 60 kb": (30000, 60000, 0)}
+# ... and small pairs that reach each of its cases (walk_case)
+WALK_CASES = ("random-0", "random-1", "random-2", "pad-masked", "repeats",
+              "homopolymers", "mid-row-start", "row-0", "column-0", "corner",
+              "several-tiles")
 
 
 def _mutated(rng, seq, rate=0.01):
@@ -106,6 +117,80 @@ def local_inputs(rng, R, P, lr, lp, live_read, live_path, pad_rows=0):
         x0 = int(rng.integers(0, live_path - live_read + 1))
         reads[r, :live_read] = _mutated(rng, paths[r % P, x0:x0 + live_read])
     return torch.from_numpy(reads), torch.from_numpy(paths)
+
+
+def _mutated_indels(rng, seq, sub, ins, dele):
+    """seq with substitutions, insertions and deletions at these rates."""
+    out = seq.copy()
+    hit = rng.random(len(out)) < sub
+    out[hit] = (out[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
+    out = out[rng.random(len(out)) >= dele]
+    at = np.flatnonzero(rng.random(len(out)) < ins)
+    return np.insert(out, at, rng.integers(0, 4, len(at)).astype(np.int8))
+
+
+def clr_pair(rng, lr, lp, pad=0):
+    """(read, path) int8 codes of a CLR-like pair: a template of lr random
+    bases mid-path among lp, the read the template at ~87% identity (2%
+    substitutions, 6% insertions, 5% deletions), `pad` bases of it masked
+    with PAD mid-read, as an earlier placement round masks them."""
+    template = rng.integers(0, 4, lr).astype(np.int8)
+    read = _mutated_indels(rng, template, 0.02, 0.06, 0.05)
+    if pad:
+        read[len(read) // 2:len(read) // 2 + pad] = PAD
+    left = (lp - lr) // 2
+    path = np.concatenate([rng.integers(0, 4, left), template,
+                           rng.integers(0, 4, lp - lr - left)]).astype(np.int8)
+    return read, path
+
+
+def walk_case(name: str):
+    """(read, path, end_i, end_j) of a small full-walk case (WALK_CASES), as
+    int8 codes: a read mutated from its path, ending at the pair's best
+    cell by the plain local scorer, unless the case names its end cell."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    flank = lambda n: rng.integers(0, 4, n).astype(np.int8)
+    if name.startswith("random") or name in ("pad-masked", "row-0", "column-0",
+                                             "corner"):
+        core = flank(int(rng.integers(60, 400)))
+        read = _mutated_indels(rng, core, 0.05, 0.02, 0.02)
+        path = np.concatenate([flank(int(rng.integers(0, 40))), core,
+                               flank(int(rng.integers(0, 40)))])
+        if name == "random-2":
+            read[rng.random(len(read)) < 0.03] = 4      # N codes
+        if name == "pad-masked":                        # masked stretches
+            read[20:45] = PAD
+            read[len(read) // 2:len(read) // 2 + 6] = PAD
+    elif name == "repeats":                             # many equal moves
+        core = np.tile(np.array([0, 1], np.int8), 90)
+        read = _mutated_indels(rng, core, 0.03, 0.03, 0.03)
+        path = np.concatenate([flank(10), np.tile(np.array([0, 1], np.int8), 100),
+                               flank(10)])
+    elif name == "homopolymers":                        # gaps that can slide
+        runs = rng.integers(1, 9, 60)
+        core = np.repeat(rng.integers(0, 4, 60).astype(np.int8), runs)
+        read = _mutated_indels(rng, core, 0.0, 0.05, 0.05)
+        path = np.concatenate([flank(15), core, flank(15)])
+    elif name == "mid-row-start":                       # a local start inside
+        core = flank(200)
+        read = np.concatenate([flank(60), _mutated_indels(rng, core, 0.03, 0.01, 0.01)])
+        path = np.concatenate([flank(80), core, flank(30)])
+    elif name == "several-tiles":                       # blocks and walk tiles
+        core = flank(1100)
+        read = _mutated_indels(rng, core, 0.04, 0.02, 0.02)
+        path = np.concatenate([flank(300), core, flank(200)])
+    else:
+        raise KeyError(name)
+    read, path = read.astype(np.int8), path.astype(np.int8)
+    if name == "row-0":
+        return read, path, 0, len(path) // 2
+    if name == "column-0":
+        return read, path, len(read) // 2, 0
+    if name == "corner":
+        return read, path, len(read), len(path)
+    _, bi, bj = seqalign.local_forward_pairs_ref(torch.from_numpy(read[None]),
+                                                 torch.from_numpy(path[None]))
+    return read, path, int(bi[0]), int(bj[0])
 
 
 def synthetic_shapes(seed: int = 0):
@@ -194,7 +279,38 @@ def main() -> int:
                 seqalign_cuda.pairs_layout = default
             print(f"K4 {name}: (K, T, blocks a pair) = {layout}: {ms:.3f} ms",
                   flush=True)
+    if hasattr(seqalign_cuda, "walk_layout"):
+        walk_variants(np.random.default_rng(13))
     return 0
+
+
+def walk_variants(rng):
+    """The walk (sa_walk) at WALK_CLR's sizes, each pair ending at K4's
+    best cell, under one to eight warps a block; each variant's walk equal
+    to the default's."""
+    default = seqalign_cuda.walk_layout
+    for name, (lr, lp, pad) in WALK_CLR.items():
+        read, path = clr_pair(rng, lr, lp, pad)
+        _, bi, bj = seqalign.batched_pair_scores(torch.from_numpy(read[None]).cuda(),
+                                                 torch.from_numpy(path[None]).cuda())
+        ei, ej = int(bi[0]), int(bj[0])
+        r, p = torch.from_numpy(read[:ei].copy()).cuda(), torch.from_numpy(path[:ej].copy()).cuda()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(r=r, p=p):
+            return seqalign_cuda._launch_walk(seqalign_cuda._lib(), r, p, stream)[0]
+        want = seqalign_cuda.walk_result(run().cpu(), ei, ej)
+        for T in (64, 32, 128, 256):
+            layout = (T, -(-ej // (seqalign_cuda.WALK_K * T)))
+            seqalign_cuda.walk_layout = lambda cols, layout=layout: layout
+            try:
+                assert seqalign_cuda.walk_result(run().cpu(), ei, ej) == want, (name, T)
+                ms = time_ms(run)
+            finally:
+                seqalign_cuda.walk_layout = default
+            print(f"walk {name}: {ei} x {ej}: (threads, blocks) = {layout}"
+                  f"{' (default)' if layout == default(ej) else ''}: {ms:.3f} ms",
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,10 @@
 //                          _kernel_factory as the pairwise scorer (read i
 //                          against path i);
 //   sa_local_fwd  (K5)     replaces the same _kernel_factory as the cross
-//                          product (every read against every path).
+//                          product (every read against every path);
+//   sa_walk                the exact full-matrix traceback of one pair
+//                          (walk codes, then the walk); replaces no TPU
+//                          kernel: the JAX package walks on the host.
 //
 // Scores: match +1, mismatch -2, gap -3, floor 0; a PAD (5) on either side
 // scores -1000; code 4 (N) mismatches everything.
@@ -615,17 +618,10 @@ local_fwd_kernel(const int8_t* __restrict__ reads, int lr,
   }
 }
 
-// K4 (sa_pairs_fwd): full local alignment of read p against path p.
-// Replaces gfalign_tpu/ops/seqalign_pallas.py _kernel_factory as the
-// pairwise scorer (pallas_call at :445).
-//
-// Bound: integer ALU operations (OPS_PER_CELL["pairs"] in chip_smoke.py).
-// The local kernel above gives a pair one block, so the band-edge run's
-// dozen pairs worked on a dozen of 132 SMs, and each row paid a block-wide
-// scan and two block barriers.  This design:
-//   * a pair's columns are split over PARTS blocks of T threads, K columns
-//     a thread (ops/seqalign_cuda.pairs_layout picks them: a few pairs are
-//     split so that they still fill the card, many take a block each);
+// The skewed wavefront that K4 (pairs_fwd_kernel) and the walk's forward
+// pass (walk_fwd_kernel) share: full local alignment of one read against
+// one path, the path's columns split over `parts` blocks of T threads, K
+// columns a thread, no H matrix kept.
 //   * inside a block the threads run K2's skewed wavefront
 //     (csrc/nw_path.cu): lane l of warp w works on row s - l at step s with
 //     its left column from lane l - 1 by one shuffle, so the horizontal
@@ -633,16 +629,17 @@ local_fwd_kernel(const int8_t* __restrict__ reads, int lr,
 //     of 32 rows behind warp w - 1, its left column through a ring in
 //     shared memory, one block barrier per 32 rows;
 //   * between the blocks of a pair the last column goes through global
-//     memory (`hand`, lr words a block) with a progress word a block:
-//     block p publishes the rows it has finished after each batch, block
-//     p + 1 waits for the rows of its next batch.  Blocks take their place
-//     by ticket (an atomic counter), so a block only ever waits for one
-//     that is already running, whatever order the card starts them in;
-//   * each block leaves its best (key, column); the last block of a pair
-//     to finish reduces them, smaller column winning ties.
-// Workspace (int32 words, see sa_pairs_workspace): ticket, done[R],
-// progress[R * PARTS] (zeroed by the launcher), keys[R * PARTS] (int64),
-// columns[R * PARTS], hand[R * PARTS * lr].
+//     memory (hand_out: n_rows words a block, read by the next block as its
+//     hand_in) with a progress word a block: block p publishes the rows it
+//     has finished after each batch, block p + 1 waits for the rows of its
+//     next batch.  The kernels place blocks by ticket (an atomic counter),
+//     so a block only ever waits for one that is already running, whatever
+//     order the card starts them in.
+// The two kernels differ only in what they keep of a cell, which `epi`
+// does: epi.cell(k, i, v, dg, up, left, eq) after cell (i, jbase + k + 1)
+// of value v, with its diagonal, upper and left neighbours and eq the
+// walk's match (read == path < 4, no PAD case), then epi.row(i) after the
+// lane's K cells of row i.  h ends as the lane's cells of row n_rows.
 constexpr int HRING = 128;  // rows of the between-warp ring (power of two)
 
 #ifndef GF_HOST_SHIM
@@ -661,49 +658,26 @@ __device__ __forceinline__ int32_t load_acquire(const int32_t* p) {
 }
 #endif
 
-template <int K, typename KeyT>
-__global__ void __launch_bounds__(MAX_THREADS)
-pairs_fwd_kernel(const int8_t* __restrict__ reads, int lr,
-                 const int8_t* __restrict__ paths, int lp, int R, int parts,
-                 int32_t* __restrict__ out, int32_t* work, int a_ring_size) {
-  extern __shared__ int32_t sm[];
-  __shared__ int ticket_s, rows_slot, red_x[MAX_WARPS];
-  __shared__ KeyT red_k[MAX_WARPS];
+// One block's strip of the wavefront: columns jbase + 1.. of the thread,
+// part `part` of `parts` (progress points at this block's word, the left
+// block's before it), read chars staged through a_ring (amask + 1 words),
+// the warps' hand-over through ring_h (NW * HRING words).
+template <int K, typename Epi>
+__device__ __forceinline__ void wavefront_strip(
+    const int8_t* __restrict__ read, int n_rows,
+    const int8_t* __restrict__ path, int lp, int jbase, int part, int parts,
+    int32_t* progress, const int32_t* hand_in, int32_t* hand_out,
+    int32_t* a_ring, int amask, int32_t* ring_h, int (&h)[K], Epi& epi) {
   const int t = threadIdx.x, w = t >> 5, l = t & 31;
   const int T = blockDim.x, NW = T >> 5;
-  const int n_blocks = R * parts;
-  int32_t* done = work + 1;
-  int32_t* progress = work + 1 + R;
-  const size_t zeroed = (size_t)(1 + R + n_blocks + 1) & ~(size_t)1;
-  long long* part_key = (long long*)(work + zeroed);
-  int32_t* part_col = work + zeroed + 2 * (size_t)n_blocks;
-  int32_t* hand = part_col + n_blocks;
-  if (t == 0) ticket_s = atomicAdd(work, 1);
-  __syncthreads();
-  const int ticket = ticket_s;
-  const int pair = ticket / parts, part = ticket % parts;
-  const int8_t* read = reads + (size_t)pair * lr;
-  const int8_t* path = paths + (size_t)pair * lp;
-  const int n_rows = live_rows(read, lr, &rows_slot);
-  int32_t* a_ring = sm;
-  int32_t* ring_h = sm + a_ring_size;
-  const int amask = a_ring_size - 1;
-  const int32_t* hand_in = hand + (size_t)(ticket - 1) * lr;  // part > 0
-  int32_t* hand_out = hand + (size_t)ticket * lr;
-  const int jbase = (part * T + t) * K;  // the thread's columns: jbase + 1..
-  constexpr int KEY_BITS = sizeof(KeyT) == 4 ? 16 : 32;
-  constexpr KeyT KEY_SCALE = (KeyT)1 << KEY_BITS;
-  int pc[K], h[K];
-  KeyT key[K];
+  int pc[K];
+  bool pad_col = false;  // a PAD column among the warp's (past the path)
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     pc[k] = jbase + k < lp ? path[jbase + k] : PAD;  // past the path: inert
     h[k] = 0;
-    key[k] = 0;
+    pad_col |= pc[k] == PAD;
   }
-  bool pad_col = false;  // a PAD column among the warp's (past the path)
-#pragma unroll
-  for (int k = 0; k < K; ++k) pad_col |= pc[k] == PAD;
   pad_col = __any_sync(FULL, pad_col);
   const bool col0 = w == 0 && part == 0;  // lane 0 borders column 0
   int dg0 = 0;     // H[i-1][jbase]: the left column one row up
@@ -724,14 +698,18 @@ pairs_fwd_kernel(const int8_t* __restrict__ reads, int lr,
     int dg = dg0, left = in;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      int s = pc[k] == rk ? s_match : s_mis;
+      const bool eq = pc[k] == rk;
+      int s = eq ? s_match : s_mis;
       if (decltype(pads)::value && pc[k] == PAD) s = BLOCKV;
-      const int c = __viaddmax_s32_relu(dg, s, h[k] + GAP);
-      dg = h[k];
-      left = __viaddmax_s32(left, GAP, c);
-      h[k] = left;
-      key[k] = max(key[k], (KeyT)left * KEY_SCALE - i);
+      const int up = h[k];
+      const int c = __viaddmax_s32_relu(dg, s, up + GAP);
+      const int v = __viaddmax_s32(left, GAP, c);
+      epi.cell(k, i, v, dg, up, left, eq);
+      dg = up;
+      left = v;
+      h[k] = v;
     }
+    epi.row(i);
     dg0 = in;
     last_h = left;
     if (l == 31) {
@@ -761,7 +739,7 @@ pairs_fwd_kernel(const int8_t* __restrict__ reads, int lr,
         // the left block's last column for warp 0's rows of this batch
         const int need = min(n_rows, 32 * g + 32);
         if (t == 0)
-          while (load_acquire(progress + ticket - 1) < need) {
+          while (load_acquire(progress - 1) < need) {
           }
         __syncwarp();
         if (rr < n_rows)
@@ -776,15 +754,81 @@ pairs_fwd_kernel(const int8_t* __restrict__ reads, int lr,
       batch(std::false_type{}, g);
     if (part + 1 < parts && t == T - 1) {  // rows whose last column is out
       const int rows_done = min(n_rows, 32 * (g - 2 * (NW - 1)) + 1);
-      if (rows_done > 0) store_release(progress + ticket, rows_done);
+      if (rows_done > 0) store_release(progress, rows_done);
     }
   }
+}
+
+// K4 (sa_pairs_fwd): full local alignment of read p against path p.
+// Replaces gfalign_tpu/ops/seqalign_pallas.py _kernel_factory as the
+// pairwise scorer (pallas_call at :445).
+//
+// Bound: integer ALU operations (OPS_PER_CELL["pairs"] in chip_smoke.py).
+// The local kernel above gives a pair one block, so the band-edge run's
+// dozen pairs worked on a dozen of 132 SMs, and each row paid a block-wide
+// scan and two block barriers.  This design:
+//   * a pair's columns are split over PARTS blocks of T threads, K columns
+//     a thread (ops/seqalign_cuda.pairs_layout picks them: a few pairs are
+//     split so that they still fill the card, many take a block each), and
+//     run the wavefront above (wavefront_strip);
+//   * a thread keeps the best key of each of its columns (BestKeys), each
+//     block leaves its best (key, column); the last block of a pair to
+//     finish reduces them, smaller column winning ties.
+// Workspace (int32 words, see sa_pairs_workspace): ticket, done[R],
+// progress[R * PARTS] (zeroed by the launcher), keys[R * PARTS] (int64),
+// columns[R * PARTS], hand[R * PARTS * lr].
+template <int K, typename KeyT>
+struct BestKeys {
+  KeyT key[K];
+  __device__ __forceinline__ void cell(int k, int i, int v, int, int, int,
+                                       bool) {
+    constexpr int bits = sizeof(KeyT) == 4 ? 16 : 32;
+    key[k] = max(key[k], (KeyT)v * ((KeyT)1 << bits) - i);
+  }
+  __device__ __forceinline__ void row(int) {}
+};
+
+template <int K, typename KeyT>
+__global__ void __launch_bounds__(MAX_THREADS)
+pairs_fwd_kernel(const int8_t* __restrict__ reads, int lr,
+                 const int8_t* __restrict__ paths, int lp, int R, int parts,
+                 int32_t* __restrict__ out, int32_t* work, int a_ring_size) {
+  extern __shared__ int32_t sm[];
+  __shared__ int ticket_s, rows_slot, red_x[MAX_WARPS];
+  __shared__ KeyT red_k[MAX_WARPS];
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  const int n_blocks = R * parts;
+  int32_t* done = work + 1;
+  int32_t* progress = work + 1 + R;
+  const size_t zeroed = (size_t)(1 + R + n_blocks + 1) & ~(size_t)1;
+  long long* part_key = (long long*)(work + zeroed);
+  int32_t* part_col = work + zeroed + 2 * (size_t)n_blocks;
+  int32_t* hand = part_col + n_blocks;
+  if (t == 0) ticket_s = atomicAdd(work, 1);
+  __syncthreads();
+  const int ticket = ticket_s;
+  const int pair = ticket / parts, part = ticket % parts;
+  const int8_t* read = reads + (size_t)pair * lr;
+  const int8_t* path = paths + (size_t)pair * lp;
+  const int n_rows = live_rows(read, lr, &rows_slot);
+  const int jbase = (part * T + t) * K;  // the thread's columns: jbase + 1..
+  constexpr int KEY_BITS = sizeof(KeyT) == 4 ? 16 : 32;
+  constexpr KeyT KEY_SCALE = (KeyT)1 << KEY_BITS;
+  BestKeys<K, KeyT> best;
+#pragma unroll
+  for (int k = 0; k < K; ++k) best.key[k] = 0;
+  int h[K];
+  wavefront_strip<K>(read, n_rows, path, lp, jbase, part, parts,
+                     progress + ticket, hand + (size_t)(ticket - 1) * lr,
+                     hand + (size_t)ticket * lr, sm, a_ring_size - 1,
+                     sm + a_ring_size, h, best);
   KeyT bk = 0;
   int bj = 0;
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    if (key[k] > bk) {
-      bk = key[k];
+    if (best.key[k] > bk) {
+      bk = best.key[k];
       bj = jbase + k + 1;
     }
   reduce_best(bk, bj, red_k, red_x);
@@ -804,17 +848,211 @@ pairs_fwd_kernel(const int8_t* __restrict__ reads, int lr,
           best_j = jj;
         }
       }
-      int best = 0, bi = 0;
+      int best_v = 0, bi = 0;
       if (best_k > 0) {
-        best = (int)((best_k + KEY_SCALE - 1) >> KEY_BITS);
-        bi = (int)((long long)best * KEY_SCALE - best_k);
+        best_v = (int)((best_k + KEY_SCALE - 1) >> KEY_BITS);
+        bi = (int)((long long)best_v * KEY_SCALE - best_k);
       } else {
         best_j = 0;
       }
-      out[pair] = best;
+      out[pair] = best_v;
       out[R + pair] = bi;
       out[2 * R + pair] = best_j;
     }
+  }
+}
+
+// The exact full-matrix traceback (sa_walk).  Replaces no TPU kernel: the
+// JAX package walks on the host (gfalign_tpu/ops/seqalign.py traceback),
+// as the port did in its native runtime (seq_local_traceback in
+// native/gfalign_host.cpp).  The align mode takes this walk when a banded
+// walk fails its parity gates: one (read, path) pair, rows 1..end_i by
+// columns 1..end_j, 0.3-2 G cells for a CLR read against its candidate
+// path.  Bit for bit seq_local_traceback: the matrix scores a PAD on either
+// side as BLOCKV, the walk's diagonal test takes match iff read == path < 4
+// (no PAD case), a move is tried diagonal, then up, then left.  On CUDA
+// every full walk of the align mode comes here (ops/seqalign.traceback);
+// on the CPU the native walk stays the route and the oracle, and
+// ops/seqalign.walk_codes_ref plus its walk is the plain version.
+//
+// Bound: integer ALU operations, 8 a cell for the recurrence (1 G cells
+// take ~0.5 ms at 16.7 T int32 op/s) and about as many again for the walk
+// code; the codes written, 2 bits a cell (cells / 4 bytes), take under a
+// tenth of that at 3.35 TB/s.  The wavefront's steps are serial within a
+// lane, so the kernel runs far from that bound (a few % at clr.align's
+// sizes, PERF.md's kernel table): the design keeps as many lanes busy as
+// the rectangle's width allows.  Two kernels on one stream:
+//   * walk_fwd_kernel runs K4's wavefront (wavefront_strip) over the one
+//     pair, WALK_K = 8 columns a lane, and keeps, for every cell, the 2-bit
+//     move the host walk would take there (WalkCodes), decided while the
+//     cell's neighbours are still in registers: 0 stop (H <= 0, or no move
+//     fits), 1 diagonal (H == H[i-1][j-1] + sub, sub the match iff
+//     read == path < 4), 2 up (I), 3 left (D), tried in that order.  No H
+//     matrix is stored: the walk needs only the codes and the two
+//     sequences.  The tile is a block's strip: two warps, 512 columns of
+//     the whole height, blocks chained left to right by the progress words
+//     (the wavefront's flags; block p + 1 runs ~100 rows behind block p),
+//     all in one launch.  The layout (ops/seqalign_cuda.walk_layout) is
+//     the fastest of 4, 8 or 16 columns a lane and one to four warps a
+//     block at clr.align's sizes: the step is serial within a lane, so more
+//     lanes beat more columns a lane until the ramp (a warp's 32 rows of
+//     skew and the batch of the hand-over, per block) eats the gain;
+//   * code packing: a lane's 8 codes of a row are one 16-bit word, and
+//     column group g (columns 8 g + 1 .. 8 g + 8) keeps its rows
+//     contiguous, codes[g * rows + i - 1], so a lane writes its words one
+//     after another (L2 merges the 2-byte writes into whole sectors) and a
+//     tile of the walk is a set of contiguous runs.  Memory a walk: cells /
+//     4 bytes (columns rounded up to 512) plus a hand-over column of rows
+//     int32 a block: ~340 MB for a 30 kb read against a 45 kb stretch of
+//     path, where the host walk wrote 5.4 GB of int32;
+//   * walk_trace_kernel, one block of WALK_TRACE_THREADS, walks from
+//     (end_i, end_j): the block loads the tile of codes above and left of
+//     the walk's cell (WALK_TROWS rows by WALK_TGROUPS groups, 512 x 512
+//     cells in 64 KB, with the read's and the path's chars of the tile)
+//     into shared memory, thread 0 steps through it (one shared load, a
+//     shift and a branch a step) until it leaves the tile, and the block
+//     loads the next.  It writes the score's companions and the op count
+//     into out[1..5] (walk_fwd_kernel wrote the score, H[end_i][end_j],
+//     into out[0]) and the ops, last first, backwards from the end of the
+//     op area, so that they read forward; the host reads all of it in one
+//     copy.
+constexpr int WALK_K = 8;          // columns a lane: one word of 2-bit codes
+using WalkWord = uint16_t;
+constexpr int WALK_TROWS = 512;    // rows of the walk's tile
+constexpr int WALK_TGROUPS = 64;   // column groups of the walk's tile
+constexpr int WALK_TRACE_THREADS = 512;  // walk_trace_kernel's block
+constexpr int WALK_HEAD = 8;       // int32 words of out before the ops
+
+// The walk's per-cell work: the cell's move, 2 bits of the row's word.
+struct WalkCodes {
+  WalkWord* out;  // the lane's column group, row 1 first
+  uint32_t word;
+  __device__ __forceinline__ void cell(int k, int, int v, int dg, int up,
+                                       int left, bool eq) {
+    // the first move that fits in the walk's order
+    uint32_t code = v == left + GAP ? 3u : 0u;
+    code = v == up + GAP ? 2u : code;
+    code = v == dg + (eq ? MATCH : MISMATCH) ? 1u : code;
+    word |= (v > 0 ? code : 0u) << (2 * k);
+  }
+  __device__ __forceinline__ void row(int i) {
+    out[i - 1] = (WalkWord)word;
+    word = 0;
+  }
+};
+
+__global__ void __launch_bounds__(MAX_THREADS)
+walk_fwd_kernel(const int8_t* __restrict__ read, int rows,
+                const int8_t* __restrict__ path, int cols, int parts,
+                WalkWord* __restrict__ codes, int32_t* work,
+                int32_t* __restrict__ out, int a_ring_size) {
+  extern __shared__ int32_t sm[];
+  __shared__ int ticket_s;
+  const int t = threadIdx.x;
+  int32_t* progress = work + 1;
+  int32_t* hand = work + 1 + parts;
+  if (t == 0) ticket_s = atomicAdd(work, 1);
+  __syncthreads();
+  const int part = ticket_s;
+  const int grp = part * blockDim.x + t;  // the lane's column group
+  const int jbase = grp * WALK_K;         // its columns: jbase + 1..
+  WalkCodes epi{codes + (size_t)grp * rows, 0u};
+  int h[WALK_K];
+  wavefront_strip<WALK_K>(read, rows, path, cols, jbase, part, parts,
+                          progress + part, hand + (size_t)(part - 1) * rows,
+                          hand + (size_t)part * rows, sm, a_ring_size - 1,
+                          sm + a_ring_size, h, epi);
+#pragma unroll
+  for (int k = 0; k < WALK_K; ++k)  // every lane's last row is row `rows`
+    if (jbase + k + 1 == cols) out[0] = h[k];
+}
+
+__global__ void __launch_bounds__(WALK_TRACE_THREADS)
+walk_trace_kernel(const WalkWord* __restrict__ codes, int rows, int cols,
+                  const int8_t* __restrict__ read,
+                  const int8_t* __restrict__ path,
+                  int32_t* __restrict__ out) {
+  extern __shared__ int32_t dyn[];
+  __shared__ int cur_i, cur_j, stopped;
+  WalkWord* tile = (WalkWord*)dyn;  // group-major: tile[gg * TROWS + rr]
+  int8_t* tread = (int8_t*)(tile + WALK_TROWS * WALK_TGROUPS);
+  int8_t* tpath = tread + WALK_TROWS;
+  const int cap = rows + cols;  // the most moves a walk can make
+  char* ops = (char*)(out + WALK_HEAD);
+  const int t = threadIdx.x;
+  int n = 0, matches = 0, nm = 0;  // thread 0's
+  if (t == 0) {
+    cur_i = rows;
+    cur_j = cols;
+    stopped = rows == 0 || cols == 0;
+  }
+  __syncthreads();
+  for (;;) {
+    const int i = cur_i, j = cur_j;
+    if (stopped) break;
+    // the tile above and left of (i, j): rows i_lo..i, columns j_lo + 1..j
+    const int i_lo = max(1, i - WALK_TROWS + 1);
+    const int g_hi = (j - 1) / WALK_K;
+    const int g_lo = max(0, g_hi - WALK_TGROUPS + 1);
+    const int j_lo = g_lo * WALK_K;
+    const int nr = i - i_lo + 1;
+    const size_t row0 = (size_t)i_lo - 1;
+#pragma unroll 8
+    for (int q = t; q < WALK_TGROUPS * WALK_TROWS;
+         q += WALK_TRACE_THREADS) {
+      const int gg = q / WALK_TROWS, rr = q % WALK_TROWS;
+      if (g_lo + gg <= g_hi && rr < nr)
+        tile[q] = __ldcg(codes + (size_t)(g_lo + gg) * rows + row0 + rr);
+    }
+    for (int q = t; q < nr; q += WALK_TRACE_THREADS)
+      tread[q] = read[row0 + q];
+    for (int q = t; q < j - j_lo; q += WALK_TRACE_THREADS)
+      tpath[q] = path[j_lo + q];
+    __syncthreads();
+    if (t == 0) {
+      int ii = i, jj = j;
+      bool stop = false;
+      while (ii >= i_lo && jj > j_lo) {
+        const uint32_t word =
+            tile[((jj - 1) / WALK_K - g_lo) * WALK_TROWS + ii - i_lo];
+        const uint32_t code = (word >> (2 * ((jj - 1) % WALK_K))) & 3u;
+        char op;
+        if (code == 1u) {
+          const int rc = tread[ii - i_lo];
+          const bool eq = rc == tpath[jj - 1 - j_lo] && rc < 4;
+          op = eq ? '=' : 'X';
+          matches += eq;
+          nm += !eq;
+          --ii;
+          --jj;
+        } else if (code == 2u) {
+          op = 'I';
+          ++nm;
+          --ii;
+        } else if (code == 3u) {
+          op = 'D';
+          ++nm;
+          --jj;
+        } else {
+          stop = true;  // a local start
+          break;
+        }
+        ops[cap - 1 - n] = op;
+        ++n;
+      }
+      cur_i = ii;
+      cur_j = jj;
+      stopped = stop || ii == 0 || jj == 0;
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    if (rows == 0 || cols == 0) out[0] = 0;  // no forward pass ran
+    out[1] = cur_i;
+    out[2] = cur_j;
+    out[3] = matches;
+    out[4] = nm;
+    out[5] = n;
   }
 }
 
@@ -1028,5 +1266,60 @@ extern "C" int sa_pairs_fwd(const void* reads, int R, int lr,
     if (wide) GF_PAIRS(16, long long); else GF_PAIRS(16, int);
   }
 #undef GF_PAIRS
+  return (int)cudaGetLastError();
+}
+
+// Words of the walk's workspace for `parts` blocks over `rows` rows: a
+// ticket, a progress word a block, a hand-over column a block.
+extern "C" long long sa_walk_workspace(int rows, int parts) {
+  return 1 + (long long)parts + (long long)parts * rows;
+}
+
+// The walk's layout constants, which ops/seqalign_cuda.py checks its own
+// against: columns a lane of walk_fwd_kernel (WALK_K) and int32 words of
+// out before the ops (WALK_HEAD).
+extern "C" int sa_walk_k() { return WALK_K; }
+extern "C" int sa_walk_head() { return WALK_HEAD; }
+
+// The exact full-matrix traceback from the last cell (rows, cols) of read
+// (rows,) int8 against path (cols,) int8.  codes holds parts * T * rows
+// 16-bit words, work sa_walk_workspace(rows, parts); out holds
+// WALK_HEAD + (rows + cols + 3) / 4 int32: score, qstart, pstart, matches,
+// nm, the op count n, two unused words, then rows + cols bytes whose last n
+// are the ops ('=', 'X', 'I', 'D'), forward.  T threads a block (a multiple
+// of 32, at most 512), parts * T * WALK_K >= cols
+// (ops/seqalign_cuda.walk_layout picks them).  An empty rectangle launches the walk alone.  Launches on
+// `stream` and returns the first launch error.
+extern "C" int sa_walk(const void* read, int rows, const void* path, int cols,
+                       void* codes, void* work, void* out, int T, int parts,
+                       void* stream) {
+  const bool cells = rows > 0 && cols > 0;
+  if (rows < 0 || cols < 0 || out == nullptr || T < 32 || T % 32 ||
+      T > MAX_THREADS || parts <= 0 || (long long)parts * T * WALK_K < cols ||
+      (cells && (read == nullptr || path == nullptr || codes == nullptr ||
+                 work == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = 0;
+  if (cells) {
+    cudaError_t merr =
+        cudaMemsetAsync(work, 0, (1 + (size_t)parts) * sizeof(int32_t), st);
+    if (merr != cudaSuccess) return (int)merr;
+    const int NW = T / 32;
+    int a_ring_size = 64;  // a power of two >= 64 * NW + 64 rows in flight
+    while (a_ring_size < 64 * NW + 64) a_ring_size *= 2;
+    const size_t smem = (size_t)(a_ring_size + NW * HRING) * sizeof(int32_t);
+    if ((err = prepare(walk_fwd_kernel, smem))) return err;
+    walk_fwd_kernel<<<parts, T, smem, st>>>(
+        (const int8_t*)read, rows, (const int8_t*)path, cols, parts,
+        (WalkWord*)codes, (int32_t*)work, (int32_t*)out, a_ring_size);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  const size_t smem = (size_t)WALK_TROWS * WALK_TGROUPS * sizeof(WalkWord) +
+                      WALK_TROWS + WALK_TGROUPS * WALK_K;
+  if ((err = prepare(walk_trace_kernel, smem))) return err;
+  walk_trace_kernel<<<1, WALK_TRACE_THREADS, smem, st>>>(
+      (const WalkWord*)codes, rows, cols, (const int8_t*)read,
+      (const int8_t*)path, (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -1184,7 +1184,8 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
                                 count("align.traceback.declined")
                     if pl is None:
                         with span("align.traceback.full"):
-                            pl = seqalign.traceback(rcodes, codes_of(key), bi, bj)
+                            pl = seqalign.traceback(rcodes, codes_of(key),
+                                                    bi, bj, device)
                         count("align.traceback.full_walks")
                 if pl.score < min_score:
                     continue
@@ -1311,7 +1312,8 @@ def _align_with_paths(graph: Graph, reads: Sequence[Tuple[str, str]],
                                          accepted[r], all_hits[r]):
                     continue
                 pl = seqalign.traceback(rcodes, pcodes,
-                                        int(bi[ai, pi]), int(bj[ai, pi]))
+                                        int(bi[ai, pi]), int(bj[ai, pi]),
+                                        device)
                 if pl.score < min_score:
                     continue
                 shadowed = [h for (a, b), h in zip(accepted[r], all_hits[r])

@@ -11,8 +11,10 @@ Device/host split:
     versions below (`*_ref`), which translate the JAX package's row scans:
     the per-row horizontal dependency is an associative max-plus decay
     scan, so each row is elementwise work + one cummax;
-  * only the selected placements (a handful per read) are tracebacked, on
-    the host, by recomputing the single pair's small DP.
+  * only the selected placements (a handful per read) are tracebacked, by
+    recomputing the single pair's DP: banded walks on the host; the exact
+    full-matrix walk on the device of the run (on CUDA the walk-code
+    kernel, `full_walk`; on the CPU the native walk).
 
 Scoring: match +1, mismatch -2, gap -3 (linear).
 """
@@ -46,10 +48,11 @@ PAD = 5       # padding sentinel; code 4 = N (aligns as mismatch)
 _BLOCK = -1000  # padding must never extend an alignment
 _BIG = 1 << 30
 
-# Tracebacks by route: the native C++ walks or the numpy oracles below
-# (the registry's counters align.traceback.<route>).
+# Tracebacks by route: the native C++ walks, the numpy oracles below or
+# the walk-code kernel on CUDA (the registry's counters
+# align.traceback.<route>).
 TRACEBACK_CALLS = profiling.view(profiling.COUNTS, "align.traceback.",
-                                 ("native", "python"))
+                                 ("native", "python", "cuda"))
 
 # Plain-version working set: local_forward_ref keeps its (R, P, Lp + 1) rows
 # in read chunks of at most this many elements.
@@ -405,15 +408,106 @@ def _runs(ops) -> List[Tuple[int, str]]:
     return [(int(c), chr(a[i])) for c, i in zip(counts, starts)]
 
 
+def walk_codes_ref(read_codes: torch.Tensor, path_codes: torch.Tensor):
+    """Plain version of the walk kernel's forward pass (CPU tensors): H row
+    by row over read_codes (rows,) x path_codes (cols,), as `_matrix`, and
+    for every cell the walk's move there, the first that fits of
+    1 diagonal (H == H[i-1][j-1] + sub, sub the match iff read == path < 4,
+    no PAD case), 2 up (I), 3 left (D); 0 stop (H <= 0, or none fits).
+    Returns (H[rows][cols], codes (rows + 1, cols + 1) uint8, row and column
+    0 stop)."""
+    r = read_codes.to(torch.int32)
+    p = path_codes.to(torch.int32)
+    rows, cols = r.numel(), p.numel()
+    codes = torch.zeros((rows + 1, cols + 1), dtype=torch.uint8)
+    prev = torch.zeros((cols + 1,), dtype=torch.int32)
+    decay = -GAP * torch.arange(cols, dtype=torch.int32)
+    zero = prev[:1]
+    for i in range(1, rows + 1):
+        rc = int(r[i - 1])
+        eq = (p == rc) & (rc < 4)
+        sub = torch.where((p == PAD) | (rc == PAD), _BLOCK,
+                          torch.where(eq, MATCH, MISMATCH))
+        c = torch.clamp(torch.maximum(prev[:-1] + sub, prev[1:] + GAP), min=0)
+        row = torch.cummax(c + decay, 0).values - decay
+        left = torch.cat([zero, row[:-1]])
+        code = torch.where(row == left + GAP, 3, 0)
+        code = torch.where(row == prev[1:] + GAP, 2, code)
+        code = torch.where(row == prev[:-1] + torch.where(eq, MATCH, MISMATCH),
+                           1, code)
+        codes[i, 1:] = torch.where(row > 0, code, 0).to(torch.uint8)
+        prev = torch.cat([zero, row])
+    return int(prev[cols]), codes
+
+
+def _walk(score: int, codes: torch.Tensor, read: np.ndarray, path: np.ndarray):
+    """The walk over walk codes (walk_codes_ref's) from their last cell:
+    (score, qstart, pstart, matches, nm, ops)."""
+    c = codes.numpy()
+    i, j = c.shape[0] - 1, c.shape[1] - 1
+    ops: List[str] = []
+    matches = nm = 0
+    while i > 0 and j > 0:
+        move = c[i, j]
+        if move == 1:
+            eq = read[i - 1] == path[j - 1] and read[i - 1] < 4
+            ops.append("=" if eq else "X")
+            matches += int(eq)
+            nm += int(not eq)
+            i -= 1
+            j -= 1
+        elif move == 2:
+            ops.append("I")
+            nm += 1
+            i -= 1
+        elif move == 3:
+            ops.append("D")
+            nm += 1
+            j -= 1
+        else:  # local start
+            break
+    ops.reverse()
+    return score, i, j, matches, nm, "".join(ops)
+
+
+def full_walk(read_codes: torch.Tensor, path_codes: torch.Tensor):
+    """(score, qstart, pstart, matches, nm, ops) of the exact full-matrix
+    traceback of read_codes (rows,) against path_codes (cols,), int8, from
+    their last cell (rows, cols).  CUDA tensors launch the walk-code kernel
+    (ops/seqalign_cuda.full_walk_cuda) or raise; CPU tensors take the plain
+    version, walk_codes_ref and its walk."""
+    if read_codes.is_cuda:
+        from . import seqalign_cuda
+        return seqalign_cuda.full_walk_cuda(read_codes, path_codes)
+    score, codes = walk_codes_ref(read_codes, path_codes)
+    return _walk(score, codes, read_codes.numpy(), path_codes.numpy())
+
+
 def traceback(read: np.ndarray, path: np.ndarray,
-              end_i: int, end_j: int) -> Placement:
+              end_i: int, end_j: int, device="cpu") -> Placement:
     """Recompute the pair DP and walk back from (end_i, end_j) to H==0.
 
-    Runs the native C++ walk (io/native.local_traceback); the full-matrix
-    numpy row loop below is its oracle, taken when `native.available()` is
-    false or the walk declines."""
+    The device of the align run picks the route.  On CUDA the walk runs on
+    the card (`full_walk`: the rectangle's read and path chars go up in one
+    copy, the result comes back in one).  Elsewhere the native C++ walk
+    (io/native.local_traceback) runs; the full-matrix numpy row loop below
+    is its oracle, taken when `native.available()` is false or the walk
+    declines."""
     from ..io import native
 
+    on_card = torch.device(device).type == "cuda"
+    if on_card and not (0 <= end_i <= len(read) and 0 <= end_j <= len(path)):
+        raise ValueError(f"end cell ({end_i}, {end_j}) outside the "
+                         f"{len(read)} x {len(path)} matrix")
+    profiling.count("align.traceback.full_cells", end_i * end_j)
+    if on_card:
+        profiling.count("align.traceback.cuda")
+        seq = torch.from_numpy(np.concatenate(
+            [read[:end_i], path[:end_j]]).astype(np.int8, copy=False)).to(device)
+        score, qstart, pstart, matches, nm, ops = full_walk(seq[:end_i],
+                                                            seq[end_i:])
+        return Placement(score, qstart, end_i, pstart, end_j,
+                         _runs(ops), matches, nm)
     if native.available():
         profiling.count("align.traceback.native")
         res = native.local_traceback(read, path, end_i, end_j,

@@ -1,17 +1,21 @@
-"""CUDA kernels K3, K4 and K5 of the align-mode scorer (csrc/seqalign.cu).
+"""CUDA kernels K3, K4 and K5 of the align-mode scorer, and the exact
+full-matrix traceback (csrc/seqalign.cu).
 
 K3 (`sa_banded_fwd`) replaces gfalign_tpu/ops/seqalign_pallas.py
 `_banded_kernel_factory` together with the strip assembly in front of it;
 K4 (`sa_pairs_fwd`, read i against path i) and K5 (`sa_local_fwd`, every
-read against every path) replace `_kernel_factory`.  The wrappers check
+read against every path) replace `_kernel_factory`.  The walk (`sa_walk`:
+the walk codes of one pair's rectangle, then the walk over them) replaces
+no TPU kernel: the JAX package walks on the host.  The wrappers check
 device, dtype, shape and contiguity, launch on PyTorch's current stream
 without synchronising, and count their launches in `LAUNCHES` (the
 registry's counters kernels.seqalign.<kernel>).  They never
 fall back to the plain versions of ops/seqalign.py: a CUDA tensor launches a
 kernel or raises.  The launch geometry is chosen by the small pure
-functions `banded_layout` and `pairs_layout`, which run anywhere; the
-`_launch_*` functions take the library as an argument, so that the host
-build of the source (cuda_build.build_host) runs them on CPU tensors.
+functions `banded_layout`, `pairs_layout` and `walk_layout`, which run
+anywhere; the `_launch_*` functions take the library as an argument, so
+that the host build of the source (cuda_build.build_host) runs them on
+CPU tensors.
 
 The library is built at first use with nvcc into build/gfalign_torch/ by
 ops/cuda_build.py, whose `build("seqalign")` does it explicitly and returns
@@ -24,6 +28,7 @@ import ctypes
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..utils import profiling
@@ -32,9 +37,12 @@ from . import cuda_build
 SCRATCH_BYTES = 1 << 30   # K4 workspace / K5 strip hand-over per launch
 HOST_SMS = 132            # SMs assumed by the host build (an H100's count)
 GROUP_MAX = 32            # K3 threads a pair in the group kernel (one warp)
+WALK_K = 8                # columns a thread of the walk's forward kernel
+WALK_FWD_THREADS = 64     # threads a block of the walk's forward kernel
+WALK_HEAD = 8             # int32 words of the walk's result before its ops
 
 LAUNCHES = profiling.view(profiling.COUNTS, "kernels.seqalign.",
-                         ("banded", "pairs", "cross"))
+                         ("banded", "pairs", "cross", "walk"))
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -48,9 +56,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sa_pairs_workspace.argtypes = [ci, ci, ci]
     lib.sa_pairs_workspace.restype = ctypes.c_longlong
     lib.sa_pairs_fwd.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, ci, ci, vp]
+    lib.sa_walk_workspace.argtypes = [ci, ci]
+    lib.sa_walk_workspace.restype = ctypes.c_longlong
+    lib.sa_walk.argtypes = [vp, ci, vp, ci, vp, vp, vp, ci, ci, vp]
     for fn in (lib.sa_banded_rows, lib.sa_banded_fwd,
-               lib.sa_local_strip, lib.sa_local_fwd, lib.sa_pairs_fwd):
+               lib.sa_local_strip, lib.sa_local_fwd, lib.sa_pairs_fwd,
+               lib.sa_walk, lib.sa_walk_k, lib.sa_walk_head):
         fn.restype = ci
+    if (lib.sa_walk_k(), lib.sa_walk_head()) != (WALK_K, WALK_HEAD):
+        raise RuntimeError(f"the walk kernel's layout (WALK_K, WALK_HEAD) = "
+                           f"{(lib.sa_walk_k(), lib.sa_walk_head())} differs "
+                           f"from this module's {(WALK_K, WALK_HEAD)}")
     return lib
 
 
@@ -90,6 +106,14 @@ def pairs_layout(lp: int, pairs: int, sms: int) -> Tuple[int, int, int]:
     K = 8 if cols <= 8 * 512 else 16
     T = min(512, 32 * -(-cols // (32 * K)))
     return K, T, -(-lp // (K * T))
+
+
+def walk_layout(cols: int) -> Tuple[int, int]:
+    """(threads a block T, blocks) of the walk's forward kernel over `cols`
+    columns: two warps a block of WALK_K columns a thread, 512 columns a
+    block (the fastest of 4, 8 or 16 columns a thread and one to four warps
+    a block at clr.align's sizes, PERF.md section 6)."""
+    return WALK_FWD_THREADS, max(1, -(-cols // (WALK_K * WALK_FWD_THREADS)))
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
@@ -272,3 +296,65 @@ def local_forward_cuda(read_codes, path_codes, pairwise: bool):
     else:
         out = _launch_cross(_lib(), read_codes, path_codes, stream)
     return out[0], out[1], out[2]
+
+
+def _launch_walk(lib, read_codes, path_codes, stream):
+    """The walk (sa_walk) on checked (rows,) and (cols,) codes of any one
+    device, from their last cell: its result words, (WALK_HEAD + (rows +
+    cols + 3) // 4,) int32 (walk_result reads them), and its walk codes
+    (walk_codes reads them), both on that device.  Every buffer is
+    allocated here: the codes (cells / 4 bytes), the hand-over columns and
+    the result."""
+    rows, cols = read_codes.shape[0], path_codes.shape[0]
+    device = read_codes.device
+    T, parts = walk_layout(cols)
+    codes = torch.empty((parts * T * rows,), dtype=torch.int16, device=device)
+    work = torch.empty((lib.sa_walk_workspace(rows, parts),),
+                       dtype=torch.int32, device=device)
+    out = torch.empty((WALK_HEAD + (rows + cols + 3) // 4,), dtype=torch.int32,
+                      device=device)
+    err = lib.sa_walk(read_codes.data_ptr(), rows, path_codes.data_ptr(), cols,
+                      codes.data_ptr(), work.data_ptr(), out.data_ptr(), T,
+                      parts, stream)
+    if err != 0:
+        raise RuntimeError(f"sa_walk launch failed: cudaError {err} "
+                           f"(rows={rows}, cols={cols}, T={T}, parts={parts})")
+    profiling.count("kernels.seqalign.walk")
+    return out, codes
+
+
+def walk_result(out: torch.Tensor, rows: int, cols: int):
+    """(score, qstart, pstart, matches, nm, ops) from the walk's result
+    words `out` on the host, for a rectangle of rows x cols."""
+    words = out.numpy()
+    score, qstart, pstart, matches, nm, n = (int(x) for x in words[:6])
+    ops = words[WALK_HEAD:].view(np.uint8)[rows + cols - n:rows + cols]
+    return score, qstart, pstart, matches, nm, ops.tobytes().decode()
+
+
+def walk_codes(codes: torch.Tensor, rows: int, cols: int) -> np.ndarray:
+    """The moves of a walk's code words `codes` on the host (_launch_walk's,
+    rows x cols cells) as a (rows, cols) uint8 array laid out as
+    seqalign.walk_codes_ref's codes[1:, 1:]: 0 stop, 1 diagonal, 2 up,
+    3 left.  For checks: the walk reads the words where they are."""
+    if rows == 0 or cols == 0:
+        return np.zeros((rows, cols), np.uint8)
+    words = codes.numpy().view(np.uint16).reshape(-1, rows)[:-(-cols // WALK_K)]
+    shifts = 2 * np.arange(WALK_K, dtype=np.uint16)
+    moves = (words.T[:, :, None] >> shifts) & 3
+    return moves.reshape(rows, -1)[:, :cols].astype(np.uint8)
+
+
+def full_walk_cuda(read_codes, path_codes):
+    """(score, qstart, pstart, matches, nm, ops) of the exact full-matrix
+    traceback of read_codes (rows,) against path_codes (cols,), int8 and
+    contiguous on one CUDA device, from the rectangle's last cell
+    (rows, cols): one sa_walk launch and one copy to the host, which waits
+    for it."""
+    device = _cuda_device(read_codes, "full_walk_cuda")
+    _check("read_codes", read_codes, torch.int8, 1, device)
+    _check("path_codes", path_codes, torch.int8, 1, device)
+    rows, cols = read_codes.shape[0], path_codes.shape[0]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    out, _ = _launch_walk(_lib(), read_codes, path_codes, stream)
+    return walk_result(out.cpu(), rows, cols)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from gfalign_torch import synth
+from gfalign_torch.bench_seqalign import WALK_CASES, WALK_CLR, clr_pair, walk_case
 from gfalign_torch.cli.main import main
 from gfalign_torch.engine.evaluate import evaluate_candidates
 from gfalign_torch.ops import nw_cuda, seqalign, seqalign_cuda
@@ -237,6 +238,62 @@ def test_seqalign_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="band width"):
         seqalign.banded_pair_scores(reads, paths, torch.zeros(4, dtype=torch.int32),
                                     width=6)
+
+
+@pytest.mark.parametrize("case", list(WALK_CASES) + list(WALK_CLR))
+def test_walk_kernel_matches_the_host_walk(case, cuda):
+    """The exact full-matrix walk on the card (sa_walk) against the native
+    host walk, the CPU's route: one walk launch a walk.  The CLR-sized
+    pairs end at K4's best cell."""
+    if case in WALK_CLR:
+        lr, lp, pad = WALK_CLR[case]
+        read, path = clr_pair(np.random.default_rng(lr), lr, lp, pad)
+        _, bi, bj = seqalign.batched_pair_scores(torch.from_numpy(read[None]).to(cuda),
+                                                 torch.from_numpy(path[None]).to(cuda))
+        ei, ej = int(bi[0]), int(bj[0])
+    else:
+        read, path, ei, ej = walk_case(case)
+    before = dict(seqalign_cuda.LAUNCHES), dict(seqalign.TRACEBACK_CALLS)
+    got = seqalign.traceback(read, path, ei, ej, cuda)
+    assert seqalign_cuda.LAUNCHES["walk"] == before[0]["walk"] + 1
+    assert seqalign.TRACEBACK_CALLS["cuda"] == before[1]["cuda"] + 1
+    assert seqalign.TRACEBACK_CALLS["native"] == before[1]["native"]
+    assert got == seqalign.traceback(read, path, ei, ej)
+    if case in WALK_CLR:
+        assert got.score > 1000 and ei * ej > 5 * 10 ** 8
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_kernel_codes_match_plain(case, cuda):
+    """Every cell's walk code on the card against the plain version's."""
+    read, path, ei, ej = walk_case(case)
+    r = torch.from_numpy(read[:ei].copy())
+    p = torch.from_numpy(path[:ej].copy())
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    _, codes = seqalign_cuda._launch_walk(seqalign_cuda._lib(), r.to(cuda),
+                                          p.to(cuda), stream)
+    _, want = seqalign.walk_codes_ref(r, p)
+    np.testing.assert_array_equal(seqalign_cuda.walk_codes(codes.cpu(), ei, ej),
+                                  want.numpy()[1:, 1:])
+
+
+def test_walk_kernel_rejects_bad_inputs(cuda, monkeypatch):
+    read, path, ei, ej = walk_case("random-0")
+    r, p = torch.from_numpy(read).to(cuda), torch.from_numpy(path).to(cuda)
+    with pytest.raises(TypeError):
+        seqalign_cuda.full_walk_cuda(r.int(), p)
+    with pytest.raises(ValueError):
+        seqalign_cuda.full_walk_cuda(r, p.cpu())
+    with pytest.raises(ValueError):
+        seqalign_cuda.full_walk_cuda(r[None], p)
+    with pytest.raises(ValueError):
+        seqalign.traceback(read, path, len(read) + 1, ej, cuda)
+    # a launch the kernel refuses raises, and no host walk stands in
+    monkeypatch.setattr(seqalign_cuda, "walk_layout", lambda cols: (48, 8))
+    before = dict(seqalign.TRACEBACK_CALLS)
+    with pytest.raises(RuntimeError, match="sa_walk launch failed"):
+        seqalign.traceback(read, path, ei, ej, cuda)
+    assert seqalign.TRACEBACK_CALLS["native"] == before["native"]
 
 
 @pytest.mark.parametrize("kw", [dict(seed=41, n_segments=120, n_reads=10,

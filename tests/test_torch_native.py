@@ -239,11 +239,11 @@ def test_traceback_dispatch_counts_its_route(monkeypatch):
     for route in seqalign.TRACEBACK_CALLS:      # the registry's counters
         monkeypatch.setitem(seqalign.TRACEBACK_CALLS, route, 0)
     native_pl = seqalign.traceback(read, path, len(read), len(path))
-    assert seqalign.TRACEBACK_CALLS == {"native": 1, "python": 0}
+    assert seqalign.TRACEBACK_CALLS == {"native": 1, "python": 0, "cuda": 0}
     monkeypatch.setattr(native, "available", lambda: False)
     assert seqalign.traceback(read, path, len(read), len(path)) == native_pl
     assert seqalign.banded_traceback(read, path, 3, 3, 0, 16, -1) is None
-    assert seqalign.TRACEBACK_CALLS == {"native": 1, "python": 2}
+    assert seqalign.TRACEBACK_CALLS == {"native": 1, "python": 2, "cuda": 0}
 
 
 # ----------------------------------------------------------- path-space NW

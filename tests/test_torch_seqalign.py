@@ -9,7 +9,9 @@ import torch
 
 from gfalign_tpu.ops import seqalign as jax_seqalign
 from gfalign_tpu.ops import seqalign_pallas as jax_pallas
+from gfalign_torch.bench_seqalign import WALK_CASES, walk_case
 from gfalign_torch.engine.graph_align import DevicePools
+from gfalign_torch.io import native
 from gfalign_torch.ops import seqalign
 from tests.test_align_banded import _mini_arena_fixture
 
@@ -274,3 +276,41 @@ def test_runs_and_matrix_match_the_jax_package():
                                   jax_seqalign._matrix(read, path))
     for ops in ("", "==X=IID", list("DD==")):
         assert seqalign._runs(ops) == jax_seqalign._runs(ops)
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_full_walk_plain_matches_native_and_oracles(case):
+    """The plain walk codes and their walk (the walk kernel's plain
+    version) against the native walk, the numpy oracle and the JAX
+    package's, on random pairs, PAD-masked and N codes, repeats that tie,
+    a local start mid-row, and end cells on row 0, column 0 and the
+    corner."""
+    read, path, ei, ej = walk_case(case)
+    plain = seqalign.full_walk(torch.from_numpy(read[:ei].copy()),
+                               torch.from_numpy(path[:ej].copy()))
+    assert plain == native.local_traceback(read, path, ei, ej, seqalign.MATCH,
+                                           seqalign.MISMATCH, seqalign.GAP,
+                                           seqalign.PAD, seqalign._BLOCK)
+    score, qstart, pstart, matches, nm, ops = plain
+    want = seqalign.Placement(score, qstart, ei, pstart, ej,
+                              seqalign._runs(ops), matches, nm)
+    assert seqalign._traceback_py(read, path, ei, ej) == want
+    assert jax_seqalign._traceback_py(read, path, ei, ej) == want
+    assert seqalign.traceback(read, path, ei, ej) == want
+    _, codes = seqalign.walk_codes_ref(torch.from_numpy(read[:ei].copy()),
+                                       torch.from_numpy(path[:ej].copy()))
+    assert codes.shape == (ei + 1, ej + 1)
+    assert not codes[0].any() and not codes[:, 0].any()
+    assert len(ops) == matches + nm and (ei == 0 or ej == 0 or score > 0)
+    if case == "mid-row-start":
+        assert qstart > 0 and pstart > 0 and codes[qstart, pstart] == 0
+    if case == "pad-masked":
+        assert (read[:ei] == seqalign.PAD).any()
+    if case in ("repeats", "homopolymers"):
+        assert "I" in ops or "D" in ops
+    if case == "corner":
+        assert (ei, ej) == (len(read), len(path))
+    if case == "row-0":
+        assert ei == 0 and ej > 0
+    if case == "column-0":
+        assert ej == 0 and ei > 0

@@ -1,4 +1,4 @@
-"""K3, K4 and K5 (gfalign_torch/csrc/seqalign.cu) run on the CPU: the CUDA
+"""K3, K4, K5 and the walk (gfalign_torch/csrc/seqalign.cu) run on the CPU: the CUDA
 source is built for the host with g++ and csrc/host_shim/cuda_runtime.h (a
 block's threads as OS threads, blocks one after another, barriers and
 shuffles as std::barrier exchanges) and driven by the launchers of
@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from gfalign_torch.bench_seqalign import WALK_CASES, walk_case
+from gfalign_torch.io import native
 from gfalign_torch.ops import cuda_build, seqalign, seqalign_cuda
 from gfalign_torch.ops.seqalign import PAD
 
@@ -281,3 +283,77 @@ def test_pairs_layout_covers_the_path(lp, pairs):
     (20000, 5, 132, (8, 128, 20)), (700, 64, 132, (8, 96, 1))])
 def test_pairs_layout_fills_one_wave(lp, pairs, sms, want):
     assert seqalign_cuda.pairs_layout(lp, pairs, sms) == want
+
+
+def launch_walk(lib, read, path, ei, ej):
+    """The walk kernel's source from (ei, ej), one sa_walk launch: its
+    result words and its code words."""
+    before = seqalign_cuda.LAUNCHES["walk"]
+    got = seqalign_cuda._launch_walk(lib, torch.from_numpy(read[:ei].copy()),
+                                     torch.from_numpy(path[:ej].copy()), None)
+    assert seqalign_cuda.LAUNCHES["walk"] == before + 1
+    return got
+
+
+def run_walk(lib, read, path, ei, ej):
+    out, _ = launch_walk(lib, read, path, ei, ej)
+    return seqalign_cuda.walk_result(out, ei, ej)
+
+
+def native_walk(read, path, ei, ej):
+    return native.local_traceback(read, path, ei, ej, seqalign.MATCH,
+                                  seqalign.MISMATCH, seqalign.GAP, PAD,
+                                  seqalign._BLOCK)
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_on_the_host_matches_native(case, host_lib):
+    read, path, ei, ej = walk_case(case)
+    assert run_walk(host_lib, read, path, ei, ej) == native_walk(read, path, ei, ej)
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_codes_on_the_host_match_plain(case, host_lib):
+    # every cell's move, not only those the walk passes through
+    read, path, ei, ej = walk_case(case)
+    _, codes = launch_walk(host_lib, read, path, ei, ej)
+    _, want = seqalign.walk_codes_ref(torch.from_numpy(read[:ei].copy()),
+                                      torch.from_numpy(path[:ej].copy()))
+    np.testing.assert_array_equal(seqalign_cuda.walk_codes(codes, ei, ej),
+                                  want.numpy()[1:, 1:])
+
+
+def test_walk_layout_constants_match_the_library(host_lib, monkeypatch):
+    assert (host_lib.sa_walk_k(), host_lib.sa_walk_head()) == (
+        seqalign_cuda.WALK_K, seqalign_cuda.WALK_HEAD)
+    monkeypatch.setattr(seqalign_cuda, "WALK_K", 2 * seqalign_cuda.WALK_K)
+    with pytest.raises(RuntimeError, match="walk kernel's layout"):
+        seqalign_cuda._bind(host_lib)
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 512])
+def test_walk_layouts_on_the_host(threads, host_lib, monkeypatch):
+    # 1,100 x 1,400 cells: one to six blocks of one to sixteen warps, the
+    # walk through several tiles of codes both ways
+    monkeypatch.setattr(seqalign_cuda, "walk_layout",
+                        lambda cols: (threads, -(-cols // (8 * threads))))
+    read, path, ei, ej = walk_case("several-tiles")
+    assert ei > 512 and ej > 512
+    assert run_walk(host_lib, read, path, ei, ej) == native_walk(read, path, ei, ej)
+
+
+def test_walk_refused_launch_raises(host_lib, monkeypatch):
+    read, path, ei, ej = walk_case("random-0")
+    monkeypatch.setattr(seqalign_cuda, "walk_layout", lambda cols: (48, 8))
+    before = seqalign_cuda.LAUNCHES["walk"]
+    with pytest.raises(RuntimeError, match="sa_walk launch failed"):
+        run_walk(host_lib, read, path, ei, ej)
+    assert seqalign_cuda.LAUNCHES["walk"] == before
+
+
+@pytest.mark.parametrize("cols, blocks", [(0, 1), (1, 1), (512, 1), (513, 2),
+                                          (45000, 88), (10 ** 7, 19532)])
+def test_walk_layout_covers_the_columns(cols, blocks):
+    T, parts = seqalign_cuda.walk_layout(cols)
+    assert (T, parts) == (64, blocks)
+    assert parts * T * seqalign_cuda.WALK_K >= cols

@@ -265,6 +265,12 @@ def test_a_declined_banded_walk_counts_one_full_walk(align_argv, monkeypatch):
     assert (counts["align.traceback.declined"] == counts["align.traceback.full_walks"]
             == counts["align.traceback.banded_walks"])
     assert got["calls"]["align.traceback.full"] == counts["align.traceback.full_walks"]
+    # on the CPU every walk is native, the full ones too, and counts its cells
+    assert counts["align.traceback.native"] == (counts["align.traceback.banded_walks"]
+                                                + counts["align.traceback.full_walks"])
+    assert "align.traceback.cuda" not in counts
+    assert "kernels.seqalign.walk" not in counts
+    assert counts["align.traceback.full_cells"] > 0
 
 
 def test_search_speculation_counters_and_stdout_under_a_profiler(
