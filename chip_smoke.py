@@ -42,9 +42,10 @@ Phases (each prints a line; any failure raises and exits non-zero):
      unprofiled wall from phase 5;
   8. K3, K4 and K5 against their plain PyTorch versions, bit-exact on every
      output, on ragged random batches (PAD-masked read stretches, off-band
-     deltas, N codes, all-PAD rows, multi-step paths), then at phase 10's
-     shapes synthesised without an align run (bench_seqalign), timed with
-     the first design's recorded times beside;
+     deltas, N codes, all-PAD rows, multi-step paths), K3 at ont_r10.align's
+     shape (a pool padded to 262,144, reads of up to 201.6 kb, bands 1,024
+     and 2,048), then at phase 10's shapes synthesised without an align run
+     (bench_seqalign), timed with the first design's recorded times beside;
  8b. the exact full-matrix walk (sa_walk) against the native host walk,
      bit-exact, one walk launch a walk: every small case of
      bench_seqalign.WALK_CASES and three CLR-sized pairs (WALK_CLR: 20-30 kb
@@ -55,7 +56,11 @@ Phases (each prints a line; any failure raises and exits non-zero):
      events; the forward pass and the walk apart, by torch.profiler), the
      walk as the align mode calls it (upload, launch, copy back; host
      clock), the host walk's time, the bound and the plain version (its
-     first rows, scaled);
+     first rows, scaled), and each pair walked as one tile beside the
+     default budget's row blocks; then a walk of 300 k x 600 k cells (a
+     read at 99% whose alignment ends at the path's end, no cut), whose
+     score must equal K4's best at its end cell and whose peak device
+     memory must stay within 1 GiB;
   9. `align` end to end through gfalign_torch.cli.main.main on CUDA, three
      runs, each GAF equal to its golden in tests/data/ (md5 and record
      count) with the launch counters zeroed before and read after: the
@@ -911,6 +916,28 @@ def phase_seqalign_ragged(gen):
     return out
 
 
+def phase_seqalign_ultra_long():
+    """Phase 8's K3 at ont_r10.align's shape (bench_seqalign
+    K3_ULTRA_LONG_*): a read pool padded to 262,144 columns, reads of
+    3-201.6 kb (three over 131,072 live rows: int64 keys, and the block
+    kernel's strip sized by the launch's longest read), at bands 1,024 and
+    2,048, bit-exact against the plain version on the same inputs, timed
+    beside the bound."""
+    from gfalign_torch.bench_seqalign import (K3_ULTRA_LONG_LR, K3_ULTRA_LONG_READS,
+                                              ultra_long_banded_inputs)
+
+    args = tuple(x.cuda() for x in ultra_long_banded_inputs())
+    out = {}
+    for width in (1024, 2048):
+        res = compare_seqalign("banded", args, width=width)
+        out[f"banded_{width}"] = res
+        log(f"phase 8 K3 ultra-long N={res['shape']['N']} lr={K3_ULTRA_LONG_LR} "
+            f"width={width} reads of {min(K3_ULTRA_LONG_READS)}-{max(K3_ULTRA_LONG_READS)} "
+            f"bases: exact; {res['ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}), plain {res['plain_ms']:.0f} ms")
+    return out
+
+
 def phase_seqalign_synthetic():
     """K3, K4 and K5 at phase 10's shapes, synthesised without an align run
     (gfalign_torch/bench_seqalign.py): bit-exact on the first pairs, timed,
@@ -1009,7 +1036,13 @@ def phase_walk():
         p_d = torch.from_numpy(path[:ej].copy()).to(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         run = lambda: seqalign_cuda._launch_walk(seqalign_cuda._lib(), r_d, p_d, stream)
+        whole = lambda: seqalign_cuda._launch_walk(
+            seqalign_cuda._lib(), r_d, p_d, stream, 1 << 40)
         ms = time_ms(run, reps=3)
+        whole_ms = time_ms(whole, reps=3)
+        if (seqalign_cuda.walk_result(whole()[0].cpu(), ei, ej)
+                != seqalign_cuda.walk_result(run()[0].cpu(), ei, ej)):
+            raise RuntimeError(f"walk {name}: one tile and row blocks differ")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
@@ -1019,7 +1052,8 @@ def phase_walk():
         cells = ei * ej
         res = dict(rows=ei, cols=ej, cells=cells, score=pl.score,
                    qstart=pl.qstart, pstart=pl.pstart, ops=sum(n for n, _ in pl.cigar),
-                   ms=ms, kernels_ms=by_kernel, walk_ms=walls[1] * 1e3,
+                   ms=ms, whole_ms=whole_ms, plan=seqalign_cuda.walk_plan(ei, ej)._asdict(),
+                   kernels_ms=by_kernel, walk_ms=walls[1] * 1e3,
                    host_ms=host * 1e3, code_bytes=cells // 4,
                    bound_ms=cells * WALK_OPS_PER_CELL / INT32_ALU_OPS_PER_S * 1e3,
                    bound_by="operations",
@@ -1028,7 +1062,9 @@ def phase_walk():
         log(f"phase 8b walk {name}: {ei} x {ej} = {cells / 1e9:.3f} G cells, "
             f"score {pl.score}, {res['ops']} ops from ({pl.qstart}, {pl.pstart}); "
             f"kernel {ms:.3f} ms "
-            f"({', '.join(f'{k} {v:.3f}' for k, v in by_kernel.items())}), "
+            f"({', '.join(f'{k} {v:.3f}' for k, v in by_kernel.items())}; "
+            f"one tile {whole_ms:.3f} ms; recorded for one tile: 11.2 / 14.1 / 16.8 ms "
+            f"at WALK_CLR), plan {res['plan']}, "
             f"as the align mode calls it {res['walk_ms']:.2f} ms, host walk "
             f"{res['host_ms']:.0f} ms, bound {res['bound_ms']:.4f} ms "
             f"({WALK_OPS_PER_CELL} ops a cell); (threads, blocks) {res['layout']}")
@@ -1039,7 +1075,7 @@ def phase_walk():
     _, plain = seqalign.walk_codes_ref(torch.from_numpy(read[:cut].copy()),
                                        torch.from_numpy(path[:last["cols"]].copy()))
     last["plain_ms"] = (time.time() - t0) * 1e3 * last["rows"] / cut
-    _, codes = run()
+    _, codes = whole()
     band = codes.view(-1, last["rows"])[:, :cut].contiguous().cpu()
     got = seqalign_cuda.walk_codes(band, cut, last["cols"])
     faults["codes_differ"] = int((got != plain.numpy()[1:, 1:]).sum())
@@ -1054,7 +1090,55 @@ def phase_walk():
         raise RuntimeError(f"walk: the kernel differs from the host walk or the "
                            f"plain version: {faults}")
     out["faults"] = faults
+    out["ultra_long"] = phase_walk_ultra_long()
     return out
+
+
+def phase_walk_ultra_long(rows=300_000, cols=600_000):
+    """Phase 8b's largest walk: a read of `rows` bases at 99% (sub 0.3%,
+    ins 0.2%, del 0.5%) from the last `rows` bases of a path of `cols`, so
+    that K4's best cell lies near the corner; the walk of that rectangle
+    without a cut, its score against K4's best and its peak device memory
+    above the inputs' (at most 1 GiB), timed on the host clock."""
+    import numpy as np
+    import torch
+
+    from gfalign_torch.bench_seqalign import _mutated_indels
+    from gfalign_torch.ops import seqalign, seqalign_cuda
+    from gfalign_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(300)
+    path = rng.integers(0, 4, cols).astype(np.int8)
+    read = _mutated_indels(rng, path[cols - rows:], 0.003, 0.002, 0.005)
+    read = read[:rows].astype(np.int8)
+    r_d = torch.from_numpy(read).to(dev)
+    p_d = torch.from_numpy(path).to(dev)
+    t0 = time.time()
+    best, bi, bj = (int(x[0]) for x in seqalign.batched_pair_scores(r_d[None], p_d[None]))
+    k4_s = time.time() - t0
+    r_w, p_w = r_d[:bi].contiguous(), p_d[:bj].contiguous()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = profiling.snapshot()
+    t0 = time.time()
+    score, qstart, pstart, matches, nm, ops = seqalign_cuda.full_walk_cuda(r_w, p_w)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = profiling.since(before)["counts"]
+    res = dict(rows=bi, cols=bj, cells=bi * bj, k4_best=best, score=score,
+               qstart=qstart, pstart=pstart, ops=len(ops), walk_s=wall, k4_s=k4_s,
+               peak_bytes=peak, plan=seqalign_cuda.walk_plan(bi, bj)._asdict(),
+               counts={k: v for k, v in counts.items() if "walk" in k})
+    log(f"phase 8b walk {bi} x {bj} = {bi * bj / 1e9:.1f} G cells (no cut): score "
+        f"{score} (K4's best {best}), {len(ops)} ops from ({qstart}, {pstart}), "
+        f"{wall:.2f} s (K4 {k4_s:.2f} s), peak device memory {peak / 2 ** 20:.1f} MiB "
+        f"above the inputs, plan {res['plan']}, counters {res['counts']}")
+    if score != best or peak > 1 << 30:
+        raise RuntimeError(f"walk 300 k x 600 k: score {score} against K4's {best}, "
+                           f"peak {peak} bytes")
+    return res
 
 
 class AlignRecorder:
@@ -1650,6 +1734,7 @@ def main(only: str = "") -> int:
     if only == "sa":
         dump_details(dict(card=smi, device=name, build_s=build_s, sass=sass,
                           seqalign_ragged=phase_seqalign_ragged(gen),
+                          seqalign_ultra_long=phase_seqalign_ultra_long(),
                           seqalign_synthetic=phase_seqalign_synthetic(),
                           walk=phase_walk()),
                      "chip_smoke_sa.json")
@@ -1687,6 +1772,7 @@ def main(only: str = "") -> int:
         k1, k2 = phase_main_shapes(largest, long_tensors)
         profile = phase_profile(search_argv, search["window_s"])
         sa_ragged = phase_seqalign_ragged(gen)
+        sa_ultra_long = phase_seqalign_ultra_long()
         sa_synthetic = phase_seqalign_synthetic()
         walk = phase_walk()
         align, recs = phase_align(workdir, wl)
@@ -1727,7 +1813,8 @@ def main(only: str = "") -> int:
                    k2_check=k2_check, search=search, evalpath=evalpath,
                    filtered_search=filtered_search,
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
-                   seqalign_ragged=sa_ragged, seqalign_synthetic=sa_synthetic, walk=walk,
+                   seqalign_ragged=sa_ragged, seqalign_ultra_long=sa_ultra_long,
+                   seqalign_synthetic=sa_synthetic, walk=walk,
                    align=align, seqalign_main=sa_main, distributed=distributed,
                    host_ladder=host_ladder, trace=trace, dryrun=dryrun,
                    ops_per_cell=OPS_PER_CELL, seconds=time.time() - t_start)

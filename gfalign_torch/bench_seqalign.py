@@ -106,6 +106,23 @@ def banded_inputs(rng, read_lens, lr=8192, s_cap=24):
                  (arena, cum_off, base_ptr, plen, reads, idx, idx, deltas))
 
 
+# K3 at ont_r10.align's shape: a read pool padded to 262,144 columns (a
+# read over 131,072 bases), live reads of these lengths, bands 1,024 / 2,048
+K3_ULTRA_LONG_LR = 262_144
+K3_ULTRA_LONG_READS = (201_600, 160_000, 140_000, 20_000, 3_000)
+
+
+def ultra_long_banded_inputs():
+    """banded_inputs at K3_ULTRA_LONG's shape (three reads over 131,072
+    live rows, the longest the cell's), plus the longest read again with
+    its diagonal 700 off, so that its band loses it part of the way."""
+    rng = np.random.default_rng(K3_ULTRA_LONG_LR)
+    args = banded_inputs(rng, K3_ULTRA_LONG_READS, lr=K3_ULTRA_LONG_LR, s_cap=320)
+    idx = torch.tensor(list(range(len(K3_ULTRA_LONG_READS))) + [0], dtype=torch.int32)
+    deltas = torch.cat([args[7], args[7][:1] + 700])
+    return args[:5] + (idx, idx.clone(), deltas)
+
+
 def local_inputs(rng, R, P, lr, lp, live_read, live_path, pad_rows=0):
     """Reads (R, lr) and paths (P, lp) of int8 codes on the CPU: paths of
     live_path random bases, each read a mutated slice of path r % P of
@@ -191,6 +208,80 @@ def walk_case(name: str):
     _, bi, bj = seqalign.local_forward_pairs_ref(torch.from_numpy(read[None]),
                                                  torch.from_numpy(path[None]))
     return read, path, int(bi[0]), int(bj[0])
+
+
+# ... and pairs for the cut walk and its row blocks (walk_block_case)
+WALK_BLOCK_CASES = ("random-3", "random-4", "drift", "pad-masked",
+                    "left-edge-ties", "several-blocks", "one-block")
+
+
+def walk_block_case(name: str):
+    """(read, path, end_i, end_j, score) of a pair for the cut walk and its
+    row blocks (WALK_BLOCK_CASES), as int8 codes: the read a mutated stretch
+    of a path with a long left flank, so that the ladder's score (`score`,
+    H at the end cell) cuts the walk's columns (seqalign.walk_window);
+    ending at the pair's best cell, or at the corner for 'left-edge-ties'.
+    'drift' has a net deletion bias, 'pad-masked' masked stretches (no
+    cut), 'left-edge-ties' a read of homopolymer runs with deletions only,
+    whose alignment starts at the window's first column with equal moves
+    around it; 'several-blocks' is the largest."""
+    rng = np.random.default_rng(sum(map(ord, name)) + 7)
+    flank = lambda n: rng.integers(0, 4, n).astype(np.int8)
+    n = {"several-blocks": 640, "one-block": 150}.get(name, 360)
+    core = flank(n)
+    read = _mutated_indels(rng, core, 0.03, 0.01, 0.02)
+    if name == "drift":
+        read = _mutated_indels(rng, core, 0.01, 0.005, 0.06)
+    elif name == "pad-masked":
+        read[40:90] = PAD
+        read[len(read) // 2:len(read) // 2 + 7] = PAD
+    elif name == "left-edge-ties":
+        core = np.repeat(rng.integers(0, 4, 120).astype(np.int8),
+                         rng.integers(1, 5, 120))
+        keep = np.ones(len(core), bool)
+        keep[rng.choice(len(core), len(core) // 25, replace=False)] = False
+        keep[1] = False                   # a deletion at the start
+        read = core[keep]
+    left = int(rng.integers(n // 2, n + 1))
+    path = np.concatenate([flank(left), core,
+                           flank(int(rng.integers(0, 30)))]).astype(np.int8)
+    read = read.astype(np.int8)
+    if name == "left-edge-ties":          # the flank's last base ties too
+        path[left - 1] = core[0]
+        ei, ej = len(read), left + len(core)
+        score, _ = seqalign.walk_codes_ref(torch.from_numpy(read),
+                                           torch.from_numpy(path[:ej].copy()))
+        return read, path, ei, ej, int(score)
+    best, bi, bj = seqalign.local_forward_pairs_ref(
+        torch.from_numpy(read[None]), torch.from_numpy(path[None]))
+    return read, path, int(bi[0]), int(bj[0]), int(best[0])
+
+
+# the walk modes each case runs in (walk_budget, walk_mode_patches)
+WALK_BLOCK_RUNS = ([(case, mode) for case in WALK_BLOCK_CASES
+                    for mode in ("whole", "band", "rows")]
+                   + [("left-edge-ties", "band-wide")])
+
+
+def walk_budget(mode: str, cols: int, block_rows: int = 64) -> int:
+    """A walk budget (seqalign_cuda.WALK_BUDGET) that walks a rectangle of
+    `cols` columns as one tile ('whole') or in row blocks of block_rows
+    rows (the other modes)."""
+    if mode == "whole":
+        return 1 << 40
+    return 2 * seqalign_cuda.walk_groups(cols) * block_rows
+
+
+def walk_mode_patches(mode: str) -> dict:
+    """What a test sets on ops/seqalign_cuda to walk in `mode` under
+    walk_budget's budget: 'rows' takes no band (whole-width row blocks),
+    'band-wide' the band's blocks after a forward pass of 512 threads a
+    block; 'whole' and 'band' nothing."""
+    if mode == "rows":
+        return {"walk_band": lambda *args: None}
+    if mode == "band-wide":
+        return {"WALK_FWD_THREADS": 512}
+    return {}
 
 
 def synthetic_shapes(seed: int = 0):

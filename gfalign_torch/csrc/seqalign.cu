@@ -10,9 +10,11 @@
 //                          against path i);
 //   sa_local_fwd  (K5)     replaces the same _kernel_factory as the cross
 //                          product (every read against every path);
-//   sa_walk                the exact full-matrix traceback of one pair
-//                          (walk codes, then the walk); replaces no TPU
-//                          kernel: the JAX package walks on the host.
+//   sa_walk (_rows, _tiles, _trace)
+//                          the exact full-matrix traceback of one pair
+//                          (walk codes, then the walk; in row blocks when
+//                          the rectangle is large); replaces no TPU kernel:
+//                          the JAX package walks on the host.
 //
 // Scores: match +1, mismatch -2, gap -3, floor 0; a PAD (5) on either side
 // scores -1000; code 4 (N) mismatches everything.
@@ -167,7 +169,9 @@ __global__ void banded_rows_kernel(const int8_t* __restrict__ read_pool,
 // band are dead (width is a multiple of LPT).  Block b scores pair
 // order[b]; the strip (the read's rows plus the band) is assembled whole in
 // shared memory, and the horizontal chain is a block-wide max-plus scan
-// (two block barriers a row).
+// (two block barriers a row).  The launcher sizes the strip for the
+// launch's longest live read (rows), so a read of up to ~217 kb fits the
+// card's 227 KB at a band of 2048 whatever the pool's padded width.
 template <int LPT, typename KeyT>
 __global__ void __launch_bounds__(MAX_THREADS)
 banded_fwd_kernel(const int8_t* __restrict__ arena, int arena_len,
@@ -639,7 +643,10 @@ local_fwd_kernel(const int8_t* __restrict__ reads, int lr,
 // does: epi.cell(k, i, v, dg, up, left, eq) after cell (i, jbase + k + 1)
 // of value v, with its diagonal, upper and left neighbours and eq the
 // walk's match (read == path < 4, no PAD case), then epi.row(i) after the
-// lane's K cells of row i.  h ends as the lane's cells of row n_rows.
+// lane's K cells of row i.  The caller sets h to the lane's cells of row 0
+// and passes H[0][jbase] as dg_init (zeros for K4; a boundary row for a
+// block of the walk); column 0 is 0 in every row after row 0.  h ends as
+// the lane's cells of row n_rows.
 constexpr int HRING = 128;  // rows of the between-warp ring (power of two)
 
 #ifndef GF_HOST_SHIM
@@ -667,7 +674,8 @@ __device__ __forceinline__ void wavefront_strip(
     const int8_t* __restrict__ read, int n_rows,
     const int8_t* __restrict__ path, int lp, int jbase, int part, int parts,
     int32_t* progress, const int32_t* hand_in, int32_t* hand_out,
-    int32_t* a_ring, int amask, int32_t* ring_h, int (&h)[K], Epi& epi) {
+    int32_t* a_ring, int amask, int32_t* ring_h, int (&h)[K], int dg_init,
+    Epi& epi) {
   const int t = threadIdx.x, w = t >> 5, l = t & 31;
   const int T = blockDim.x, NW = T >> 5;
   int pc[K];
@@ -675,12 +683,11 @@ __device__ __forceinline__ void wavefront_strip(
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     pc[k] = jbase + k < lp ? path[jbase + k] : PAD;  // past the path: inert
-    h[k] = 0;
     pad_col |= pc[k] == PAD;
   }
   pad_col = __any_sync(FULL, pad_col);
   const bool col0 = w == 0 && part == 0;  // lane 0 borders column 0
-  int dg0 = 0;     // H[i-1][jbase]: the left column one row up
+  int dg0 = dg_init;  // H[i-1][jbase]: the left column one row up
   int last_h = 0;  // H[i][jbase + K] of this lane's latest row
   // One wavefront step of this lane: row i of its K columns.  GUARDED steps
   // skip the rows outside 1..n_rows (the wavefront's ramps).  Lane 0 takes
@@ -819,10 +826,12 @@ pairs_fwd_kernel(const int8_t* __restrict__ reads, int lr,
 #pragma unroll
   for (int k = 0; k < K; ++k) best.key[k] = 0;
   int h[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) h[k] = 0;
   wavefront_strip<K>(read, n_rows, path, lp, jbase, part, parts,
                      progress + ticket, hand + (size_t)(ticket - 1) * lr,
                      hand + (size_t)ticket * lr, sm, a_ring_size - 1,
-                     sm + a_ring_size, h, best);
+                     sm + a_ring_size, h, 0, best);
   KeyT bk = 0;
   int bj = 0;
 #pragma unroll
@@ -862,17 +871,18 @@ pairs_fwd_kernel(const int8_t* __restrict__ reads, int lr,
   }
 }
 
-// The exact full-matrix traceback (sa_walk).  Replaces no TPU kernel: the
-// JAX package walks on the host (gfalign_tpu/ops/seqalign.py traceback),
-// as the port did in its native runtime (seq_local_traceback in
-// native/gfalign_host.cpp).  The align mode takes this walk when a banded
-// walk fails its parity gates: one (read, path) pair, rows 1..end_i by
-// columns 1..end_j, 0.3-2 G cells for a CLR read against its candidate
-// path.  Bit for bit seq_local_traceback: the matrix scores a PAD on either
-// side as BLOCKV, the walk's diagonal test takes match iff read == path < 4
-// (no PAD case), a move is tried diagonal, then up, then left.  On CUDA
-// every full walk of the align mode comes here (ops/seqalign.traceback);
-// on the CPU the native walk stays the route and the oracle, and
+// The exact full-matrix traceback (sa_walk, sa_walk_rows, sa_walk_tiles,
+// sa_walk_trace).  Replaces no TPU kernel: the JAX package walks on the host
+// (gfalign_tpu/ops/seqalign.py traceback), as the port does on the CPU
+// (seq_local_traceback in native/gfalign_host.cpp).  The align mode takes
+// this walk when a banded walk fails its parity gates: one (read, path)
+// pair, rows 1..end_i by columns 1..end_j, 0.3-2 G cells for a CLR read
+// against its candidate path, tens of G cells for an ultra-long ONT read.
+// Bit for bit seq_local_traceback: the matrix scores a PAD on either side
+// as BLOCKV, the walk's diagonal test takes match iff read == path < 4 (no
+// PAD case), a move is tried diagonal, then up, then left.  On CUDA every
+// full walk of the align mode comes here (ops/seqalign.traceback); on the
+// CPU the native walk stays the route and the oracle, and
 // ops/seqalign.walk_codes_ref plus its walk is the plain version.
 //
 // Bound: integer ALU operations, 8 a cell for the recurrence (1 G cells
@@ -881,51 +891,100 @@ pairs_fwd_kernel(const int8_t* __restrict__ reads, int lr,
 // tenth of that at 3.35 TB/s.  The wavefront's steps are serial within a
 // lane, so the kernel runs far from that bound (a few % at clr.align's
 // sizes, PERF.md's kernel table): the design keeps as many lanes busy as
-// the rectangle's width allows.  Two kernels on one stream:
-//   * walk_fwd_kernel runs K4's wavefront (wavefront_strip) over the one
-//     pair, WALK_K = 8 columns a lane, and keeps, for every cell, the 2-bit
+// the rectangle's width allows.
+//
+// The kernels work on tiles: rows r0 + 1 .. r0 + rows of the read against
+// columns c0 + 1 .. c0 + cols of the path, from a top row H[r0][c0 ..] (a
+// boundary row that the forward pass kept, or zeros), column c0 taken as 0.
+// A launch computes a table of tiles side by side, `parts` blocks a tile.
+//   * walk_fwd_kernel<true> runs K4's wavefront (wavefront_strip) over each
+//     tile, WALK_K = 8 columns a lane, and keeps, for every cell, the 2-bit
 //     move the host walk would take there (WalkCodes), decided while the
 //     cell's neighbours are still in registers: 0 stop (H <= 0, or no move
 //     fits), 1 diagonal (H == H[i-1][j-1] + sub, sub the match iff
 //     read == path < 4), 2 up (I), 3 left (D), tried in that order.  No H
 //     matrix is stored: the walk needs only the codes and the two
-//     sequences.  The tile is a block's strip: two warps, 512 columns of
-//     the whole height, blocks chained left to right by the progress words
-//     (the wavefront's flags; block p + 1 runs ~100 rows behind block p),
-//     all in one launch.  The layout (ops/seqalign_cuda.walk_layout) is
+//     sequences.  A tile's blocks, two warps of 512 columns each, are
+//     chained left to right by the progress words (block p + 1 runs ~100
+//     rows behind block p).  The layout (ops/seqalign_cuda.walk_layout) is
 //     the fastest of 4, 8 or 16 columns a lane and one to four warps a
 //     block at clr.align's sizes: the step is serial within a lane, so more
 //     lanes beat more columns a lane until the ramp (a warp's 32 rows of
 //     skew and the batch of the hand-over, per block) eats the gain;
 //   * code packing: a lane's 8 codes of a row are one 16-bit word, and
-//     column group g (columns 8 g + 1 .. 8 g + 8) keeps its rows
-//     contiguous, codes[g * rows + i - 1], so a lane writes its words one
-//     after another (L2 merges the 2-byte writes into whole sectors) and a
-//     tile of the walk is a set of contiguous runs.  Memory a walk: cells /
-//     4 bytes (columns rounded up to 512) plus a hand-over column of rows
-//     int32 a block: ~340 MB for a 30 kb read against a 45 kb stretch of
-//     path, where the host walk wrote 5.4 GB of int32;
-//   * walk_trace_kernel, one block of WALK_TRACE_THREADS, walks from
-//     (end_i, end_j): the block loads the tile of codes above and left of
-//     the walk's cell (WALK_TROWS rows by WALK_TGROUPS groups, 512 x 512
-//     cells in 64 KB, with the read's and the path's chars of the tile)
-//     into shared memory, thread 0 steps through it (one shared load, a
-//     shift and a branch a step) until it leaves the tile, and the block
-//     loads the next.  It writes the score's companions and the op count
-//     into out[1..5] (walk_fwd_kernel wrote the score, H[end_i][end_j],
-//     into out[0]) and the ops, last first, backwards from the end of the
-//     op area, so that they read forward; the host reads all of it in one
-//     copy.
+//     column group g of a tile (its columns c0 + 8 g + 1 .. c0 + 8 g + 8)
+//     keeps its rows contiguous, codes[tile + g * rows + i - r0 - 1], so a
+//     lane writes its words one after another (L2 merges the 2-byte writes
+//     into whole sectors) and a stretch of the walk is a set of contiguous
+//     runs;
+//   * walk_trace_kernel, one block of WALK_TRACE_THREADS, walks from a cell
+//     through the tiles of a launch: the block loads the codes above and
+//     left of the walk's cell inside its tile (WALK_TROWS rows by
+//     WALK_TGROUPS groups, 512 x 512 cells in 64 KB, with the read's and the
+//     path's chars) into shared memory, thread 0 steps through them (one
+//     shared load, a shift and a branch a step) until it leaves them, and
+//     the block loads the next.  It keeps the walk's state in out[1..6]
+//     (the cell, matches, nm, the op count, how the walk ended) and the
+//     ops, last first, backwards from the end of the op area, so that they
+//     read forward; a later launch goes on from that state.
+//
+// Memory.  A rectangle whose codes (cells / 4 bytes) fit the caller's
+// budget is one tile: one forward launch with codes and one walk, as the
+// walk has always run (clr.align's walks, up to ~1.4 G cells).  A larger
+// one holds a bounded amount whatever its size (ops/seqalign_cuda's
+// _launch_walk sizes it: 300 k x 600 k cells in under 1 GiB), in row blocks:
+//   * walk_fwd_kernel<false>, the forward pass without codes over the whole
+//     rectangle as one tile, keeps H's row every `every` rows (WalkRows: the
+//     boundary rows) and the score s;
+//   * the band: a walk that ends at (R, C) with score s has at most D
+//     deletions and I insertions (ops/seqalign.walk_gaps, which counts its
+//     moves), so each of its cells lies within diagonals C - R - D ..
+//     C - R + I.  The count holds for the walk's own moves (a diagonal on a
+//     PAD row counted as the -2 its test takes), so it bounds the walk
+//     itself; ops/seqalign_cuda.walk_band cuts the row blocks to it.  The
+//     row blocks between boundary rows, each cut to the band's columns,
+//     are one launch of tiles with codes, and one trace walks through them.
+//     A tile takes its left column as 0, not its true H, so its values can
+//     only fall; on the walk's cells, and on each neighbour whose test
+//     fits, they are exact, since each lies on a best alignment that the
+//     band holds whole.  On a PAD cell the walk's -2 diagonal test could fit
+//     a neighbour that the tile lowered, so the launcher takes the band only
+//     for a rectangle without PAD;
+//   * otherwise, or where the band's codes outgrow their budget, the row
+//     blocks whole width, bottom block first, one launch with codes and one
+//     trace a block, each from its boundary row and so with the forward
+//     pass's exact values: the codes one tile would hold.
+// Row blocks (Hirschberg's halving, or tiles of columns, would do as well
+// for memory) because a row block is the one shape the wavefront already
+// computes well: the full width keeps every lane busy, and the band's
+// tiles are many small rectangles in one launch.
 constexpr int WALK_K = 8;          // columns a lane: one word of 2-bit codes
 using WalkWord = uint16_t;
-constexpr int WALK_TROWS = 512;    // rows of the walk's tile
-constexpr int WALK_TGROUPS = 64;   // column groups of the walk's tile
+constexpr int WALK_TROWS = 512;    // rows of the walk's tile in shared memory
+constexpr int WALK_TGROUPS = 64;   // column groups of that tile
 constexpr int WALK_TRACE_THREADS = 512;  // walk_trace_kernel's block
 constexpr int WALK_HEAD = 8;       // int32 words of out before the ops
+constexpr int WALK_TILE_WORDS = 6;  // int64 words of a tile's descriptor
 
-// The walk's per-cell work: the cell's move, 2 bits of the row's word.
+// A tile: its first code word, rows r0 + 1 .. r0 + rows, columns
+// c0 + 1 .. c0 + cols, and the boundary row that holds H[r0][*] (-1: zeros).
+struct WalkTile {
+  long long codes;
+  int r0, rows, c0, cols, top;
+};
+
+// Tile k of a launch's table, or with no table the whole rows x cols.
+__device__ __forceinline__ WalkTile walk_tile(const long long* tiles, int k,
+                                              int rows, int cols) {
+  if (tiles == nullptr) return WalkTile{0, 0, rows, 0, cols, -1};
+  const long long* d = tiles + (size_t)WALK_TILE_WORDS * k;
+  return WalkTile{d[0], (int)d[1], (int)d[2], (int)d[3], (int)d[4], (int)d[5]};
+}
+
+// The walk's per-cell work: the cell's move, 2 bits of the row's word
+// (none for a lane whose columns lie past its tile: out is null).
 struct WalkCodes {
-  WalkWord* out;  // the lane's column group, row 1 first
+  WalkWord* out;  // the lane's column group, the tile's first row first
   uint32_t word;
   __device__ __forceinline__ void cell(int k, int, int v, int dg, int up,
                                        int left, bool eq) {
@@ -936,76 +995,165 @@ struct WalkCodes {
     word |= (v > 0 ? code : 0u) << (2 * k);
   }
   __device__ __forceinline__ void row(int i) {
-    out[i - 1] = (WalkWord)word;
+    if (out != nullptr) out[i - 1] = (WalkWord)word;
     word = 0;
   }
 };
 
+// The forward pass's boundary rows: H's row i for i = every, 2 every, ..,
+// up to `last`, boundary row i / every - 1 (ld words a row, column 0 first).
+struct WalkRows {
+  int32_t* dst;  // the next boundary row at the lane's column jbase
+  long long ld;
+  int every, next, last, ncols;  // ncols: the lane's columns in the tile
+  int v[WALK_K];
+  __device__ __forceinline__ void cell(int k, int, int val, int, int, int,
+                                       bool) {
+    v[k] = val;
+  }
+  __device__ __forceinline__ void row(int i) {
+    if (i != next) return;
+    if (i <= last) {
+#pragma unroll
+      for (int k = 0; k < WALK_K; ++k)
+        if (k < ncols) dst[k + 1] = v[k];
+    }
+    dst += ld;
+    next += every;
+  }
+};
+
+// The tiles of a launch, `parts` blocks a tile placed by ticket.  With CODES
+// each tile's walk codes (WalkCodes); without, the one tile's boundary rows
+// (WalkRows into bound_out).  A tile's top row is row `top` of `bound`.
+// With `score`, the lane at the last column writes H[rows][cols] there.
+template <bool CODES>
 __global__ void __launch_bounds__(MAX_THREADS)
-walk_fwd_kernel(const int8_t* __restrict__ read, int rows,
-                const int8_t* __restrict__ path, int cols, int parts,
-                WalkWord* __restrict__ codes, int32_t* work,
-                int32_t* __restrict__ out, int a_ring_size) {
+walk_fwd_kernel(const int8_t* __restrict__ read, const int8_t* __restrict__ path,
+                int rows, int cols, const long long* __restrict__ tiles,
+                int parts, const int32_t* bound, long long ld,
+                WalkWord* __restrict__ codes, int32_t* bound_out, int every,
+                int last, int32_t* work, int hand_rows,
+                int32_t* __restrict__ score, int a_ring_size) {
   extern __shared__ int32_t sm[];
   __shared__ int ticket_s;
   const int t = threadIdx.x;
-  int32_t* progress = work + 1;
-  int32_t* hand = work + 1 + parts;
   if (t == 0) ticket_s = atomicAdd(work, 1);
   __syncthreads();
-  const int part = ticket_s;
+  const int ticket = ticket_s;
+  const int part = ticket % parts;
+  const WalkTile tile = walk_tile(tiles, ticket / parts, rows, cols);
+  int32_t* progress = work + 1;
+  int32_t* hand = work + 1 + gridDim.x;
   const int grp = part * blockDim.x + t;  // the lane's column group
   const int jbase = grp * WALK_K;         // its columns: jbase + 1..
-  WalkCodes epi{codes + (size_t)grp * rows, 0u};
   int h[WALK_K];
-  wavefront_strip<WALK_K>(read, rows, path, cols, jbase, part, parts,
-                          progress + part, hand + (size_t)(part - 1) * rows,
-                          hand + (size_t)part * rows, sm, a_ring_size - 1,
-                          sm + a_ring_size, h, epi);
+  int dg = 0;
+  if (tile.top >= 0) {
+    const int32_t* top = bound + (size_t)tile.top * ld + tile.c0;
 #pragma unroll
-  for (int k = 0; k < WALK_K; ++k)  // every lane's last row is row `rows`
-    if (jbase + k + 1 == cols) out[0] = h[k];
+    for (int k = 0; k < WALK_K; ++k)
+      h[k] = jbase + k + 1 <= tile.cols ? top[jbase + k + 1] : 0;
+    if (jbase <= tile.cols) dg = top[jbase];
+  } else {
+#pragma unroll
+    for (int k = 0; k < WALK_K; ++k) h[k] = 0;
+  }
+  const int8_t* tread = read + tile.r0;
+  const int8_t* tpath = path + tile.c0;
+  const int32_t* hand_in = hand + (size_t)(ticket > 0 ? ticket - 1 : 0) * hand_rows;
+  int32_t* hand_out = hand + (size_t)ticket * hand_rows;
+  if constexpr (CODES) {
+    WalkCodes epi{jbase < tile.cols
+                      ? codes + tile.codes + (size_t)grp * tile.rows
+                      : nullptr,
+                  0u};
+    wavefront_strip<WALK_K>(tread, tile.rows, tpath, tile.cols, jbase, part,
+                            parts, progress + ticket, hand_in, hand_out, sm,
+                            a_ring_size - 1, sm + a_ring_size, h, dg, epi);
+  } else {
+    WalkRows epi{bound_out + jbase, ld, every, every, last,
+                 min(WALK_K, max(0, tile.cols - jbase)), {}};
+    if (jbase == 0)  // column 0 of every boundary row
+      for (int r = every; r <= last; r += every)
+        bound_out[(size_t)(r / every - 1) * ld] = 0;
+    wavefront_strip<WALK_K>(tread, tile.rows, tpath, tile.cols, jbase, part,
+                            parts, progress + ticket, hand_in, hand_out, sm,
+                            a_ring_size - 1, sm + a_ring_size, h, dg, epi);
+  }
+  if (score != nullptr) {
+#pragma unroll
+    for (int k = 0; k < WALK_K; ++k)  // every lane's last row is row `rows`
+      if (jbase + k + 1 == tile.cols) *score = h[k];
+  }
 }
 
+// The walk from (start_i, start_j) through the tiles of a launch (uniform
+// row blocks, the first from row tiles[0].r0 + 1, the last possibly
+// shorter), or with no table the whole rows x cols.  With `cont` it goes
+// on from the state a launch before left in out.  Ends in out[6]: 1 the
+// walk ended (a stop code, row 0 or column 0), 0 it left the launch's
+// rows upwards (a block above goes on from out[1], out[2]), 2 it left a
+// tile's columns.
 __global__ void __launch_bounds__(WALK_TRACE_THREADS)
-walk_trace_kernel(const WalkWord* __restrict__ codes, int rows, int cols,
-                  const int8_t* __restrict__ read,
-                  const int8_t* __restrict__ path,
-                  int32_t* __restrict__ out) {
+walk_trace_kernel(const WalkWord* __restrict__ codes,
+                  const long long* __restrict__ tiles, int n_tiles, int rows,
+                  int cols, const int8_t* __restrict__ read,
+                  const int8_t* __restrict__ path, int32_t* __restrict__ out,
+                  int cap, int start_i, int start_j, int cont) {
   extern __shared__ int32_t dyn[];
-  __shared__ int cur_i, cur_j, stopped;
-  WalkWord* tile = (WalkWord*)dyn;  // group-major: tile[gg * TROWS + rr]
-  int8_t* tread = (int8_t*)(tile + WALK_TROWS * WALK_TGROUPS);
+  __shared__ int cur_i, cur_j, status, cur_k;
+  WalkWord* tile_sm = (WalkWord*)dyn;  // group-major: [gg * TROWS + rr]
+  int8_t* tread = (int8_t*)(tile_sm + WALK_TROWS * WALK_TGROUPS);
   int8_t* tpath = tread + WALK_TROWS;
-  const int cap = rows + cols;  // the most moves a walk can make
   char* ops = (char*)(out + WALK_HEAD);
   const int t = threadIdx.x;
+  const WalkTile first = walk_tile(tiles, 0, rows, cols);
   int n = 0, matches = 0, nm = 0;  // thread 0's
   if (t == 0) {
-    cur_i = rows;
-    cur_j = cols;
-    stopped = rows == 0 || cols == 0;
+    if (cont) {
+      matches = out[3];
+      nm = out[4];
+      n = out[5];
+    }
+    cur_i = start_i;
+    cur_j = start_j;
+    status = start_i == 0 || start_j == 0 ? 1 : -1;
   }
   __syncthreads();
   for (;;) {
+    if (t == 0 && status < 0) {
+      const int i = cur_i, j = cur_j;
+      if (i <= first.r0) {
+        status = 0;  // above the launch's rows
+      } else {
+        const int k = min(n_tiles - 1, (i - 1 - first.r0) / max(1, first.rows));
+        const WalkTile tl = walk_tile(tiles, k, rows, cols);
+        if (j <= tl.c0 || j > tl.c0 + tl.cols || i > tl.r0 + tl.rows)
+          status = 2;
+        cur_k = k;
+      }
+    }
+    __syncthreads();
+    if (status >= 0) break;
+    const WalkTile tl = walk_tile(tiles, cur_k, rows, cols);
     const int i = cur_i, j = cur_j;
-    if (stopped) break;
-    // the tile above and left of (i, j): rows i_lo..i, columns j_lo + 1..j
-    const int i_lo = max(1, i - WALK_TROWS + 1);
-    const int g_hi = (j - 1) / WALK_K;
+    // the codes above and left of (i, j) in its tile: rows i_lo..i, the
+    // tile's column groups g_lo..g_hi (columns j_lo + 1..j)
+    const int i_lo = max(tl.r0 + 1, i - WALK_TROWS + 1);
+    const int g_hi = (j - 1 - tl.c0) / WALK_K;
     const int g_lo = max(0, g_hi - WALK_TGROUPS + 1);
-    const int j_lo = g_lo * WALK_K;
+    const int j_lo = tl.c0 + g_lo * WALK_K;
     const int nr = i - i_lo + 1;
-    const size_t row0 = (size_t)i_lo - 1;
+    const size_t row0 = (size_t)(i_lo - 1 - tl.r0);
 #pragma unroll 8
-    for (int q = t; q < WALK_TGROUPS * WALK_TROWS;
-         q += WALK_TRACE_THREADS) {
+    for (int q = t; q < WALK_TGROUPS * WALK_TROWS; q += WALK_TRACE_THREADS) {
       const int gg = q / WALK_TROWS, rr = q % WALK_TROWS;
       if (g_lo + gg <= g_hi && rr < nr)
-        tile[q] = __ldcg(codes + (size_t)(g_lo + gg) * rows + row0 + rr);
+        tile_sm[q] = __ldcg(codes + tl.codes + (size_t)(g_lo + gg) * tl.rows +
+                            row0 + rr);
     }
-    for (int q = t; q < nr; q += WALK_TRACE_THREADS)
-      tread[q] = read[row0 + q];
+    for (int q = t; q < nr; q += WALK_TRACE_THREADS) tread[q] = read[i_lo - 1 + q];
     for (int q = t; q < j - j_lo; q += WALK_TRACE_THREADS)
       tpath[q] = path[j_lo + q];
     __syncthreads();
@@ -1013,9 +1161,9 @@ walk_trace_kernel(const WalkWord* __restrict__ codes, int rows, int cols,
       int ii = i, jj = j;
       bool stop = false;
       while (ii >= i_lo && jj > j_lo) {
-        const uint32_t word =
-            tile[((jj - 1) / WALK_K - g_lo) * WALK_TROWS + ii - i_lo];
-        const uint32_t code = (word >> (2 * ((jj - 1) % WALK_K))) & 3u;
+        const int jt = jj - 1 - tl.c0;  // the cell's column in its tile
+        const uint32_t word = tile_sm[(jt / WALK_K - g_lo) * WALK_TROWS + ii - i_lo];
+        const uint32_t code = (word >> (2 * (jt % WALK_K))) & 3u;
         char op;
         if (code == 1u) {
           const int rc = tread[ii - i_lo];
@@ -1042,17 +1190,19 @@ walk_trace_kernel(const WalkWord* __restrict__ codes, int rows, int cols,
       }
       cur_i = ii;
       cur_j = jj;
-      stopped = stop || ii == 0 || jj == 0;
+      if (stop || ii == 0 || jj == 0) status = 1;
     }
     __syncthreads();
   }
   if (t == 0) {
-    if (rows == 0 || cols == 0) out[0] = 0;  // no forward pass ran
+    if (!cont && tiles == nullptr && (rows == 0 || cols == 0))
+      out[0] = 0;  // no forward pass ran
     out[1] = cur_i;
     out[2] = cur_j;
     out[3] = matches;
     out[4] = nm;
     out[5] = n;
+    out[6] = status;
   }
 }
 
@@ -1106,7 +1256,9 @@ extern "C" int sa_banded_ring(int width) {
 // block-per-pair kernel with `lanes` 4 or 16 a thread; group in
 // {1, 2, 4, 8, 16, 32} the group kernel with 16 lanes and
 // width <= group * 16 (ops/seqalign_cuda.banded_layout picks them).
-// Launches on `stream` and returns cudaGetLastError().
+// max_rows (<= lr) bounds every pair's rows: the block kernel's strip in
+// shared memory is sized by it.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int sa_banded_fwd(const void* arena, int arena_len,
                              const void* cum_off, const void* base_ptr,
                              const void* plen, int n_paths, int S,
@@ -1114,10 +1266,11 @@ extern "C" int sa_banded_fwd(const void* arena, int arena_len,
                              const void* read_idx, const void* path_idx,
                              const void* deltas, const void* order,
                              const void* rows, void* out, int N, int width,
-                             int lanes, int group, void* stream) {
+                             int lanes, int group, int max_rows,
+                             void* stream) {
   if (N <= 0 || arena_len <= 0 || n_paths <= 0 || S <= 0 || n_reads <= 0 ||
       lr <= 0 || (lanes != 4 && lanes != 16) || width < lanes ||
-      width % lanes)
+      width % lanes || max_rows < 0 || max_rows > lr)
     return (int)cudaErrorInvalidValue;
   const int key_bits = bit_length((long long)lr + 2);
   const bool wide = ((long long)(lr + 1) << key_bits) >= (1LL << 31);
@@ -1127,7 +1280,7 @@ extern "C" int sa_banded_fwd(const void* arena, int arena_len,
     if (width / lanes > MAX_THREADS) return (int)cudaErrorInvalidValue;
     const int threads = round_up(width / lanes, 32);
     const size_t smem = (size_t)2 * S * sizeof(int32_t) +
-                        round_up(lr + threads * lanes + 8, 4);
+                        round_up(max_rows + threads * lanes + 8, 4);
 #define GF_BANDED(LPT, KEY)                                                  \
   do {                                                                       \
     if ((err = prepare(banded_fwd_kernel<LPT, KEY>, smem))) return err;      \
@@ -1269,57 +1422,148 @@ extern "C" int sa_pairs_fwd(const void* reads, int R, int lr,
   return (int)cudaGetLastError();
 }
 
-// Words of the walk's workspace for `parts` blocks over `rows` rows: a
-// ticket, a progress word a block, a hand-over column a block.
-extern "C" long long sa_walk_workspace(int rows, int parts) {
-  return 1 + (long long)parts + (long long)parts * rows;
+// Words of a walk launch's workspace for `blocks` blocks that hand over
+// `hand_rows` rows each: a ticket, a progress word a block, a hand-over
+// column a block.
+extern "C" long long sa_walk_workspace(int hand_rows, int blocks) {
+  return 1 + (long long)blocks + (long long)blocks * hand_rows;
 }
 
 // The walk's layout constants, which ops/seqalign_cuda.py checks its own
-// against: columns a lane of walk_fwd_kernel (WALK_K) and int32 words of
-// out before the ops (WALK_HEAD).
+// against: columns a lane of walk_fwd_kernel (WALK_K), int32 words of out
+// before the ops (WALK_HEAD) and int64 words of a tile (WALK_TILE_WORDS).
 extern "C" int sa_walk_k() { return WALK_K; }
 extern "C" int sa_walk_head() { return WALK_HEAD; }
+extern "C" int sa_walk_tile_words() { return WALK_TILE_WORDS; }
 
-// The exact full-matrix traceback from the last cell (rows, cols) of read
-// (rows,) int8 against path (cols,) int8.  codes holds parts * T * rows
-// 16-bit words, work sa_walk_workspace(rows, parts); out holds
-// WALK_HEAD + (rows + cols + 3) / 4 int32: score, qstart, pstart, matches,
-// nm, the op count n, two unused words, then rows + cols bytes whose last n
-// are the ops ('=', 'X', 'I', 'D'), forward.  T threads a block (a multiple
-// of 32, at most 512), parts * T * WALK_K >= cols
-// (ops/seqalign_cuda.walk_layout picks them).  An empty rectangle launches the walk alone.  Launches on
-// `stream` and returns the first launch error.
+namespace {
+
+int walk_ring(int T) {
+  int a_ring_size = 64;  // a power of two >= 64 * NW + 64 rows in flight
+  while (a_ring_size < 64 * (T / 32) + 64) a_ring_size *= 2;
+  return a_ring_size;
+}
+
+bool walk_threads_ok(int T) { return T >= 32 && T % 32 == 0 && T <= MAX_THREADS; }
+
+// One forward launch: n_tiles tiles of `parts` blocks of T threads.
+template <bool CODES>
+int walk_fwd(const void* read, const void* path, int rows, int cols,
+             const void* tiles, int n_tiles, int parts, const void* bound,
+             long long ld, void* codes, void* bound_out, int every, int last,
+             void* work, int hand_rows, void* score, int T, cudaStream_t st) {
+  const long long blocks = (long long)n_tiles * parts;
+  cudaError_t merr =
+      cudaMemsetAsync(work, 0, (1 + (size_t)blocks) * sizeof(int32_t), st);
+  if (merr != cudaSuccess) return (int)merr;
+  const int a_ring_size = walk_ring(T);
+  const size_t smem = (size_t)(a_ring_size + (T / 32) * HRING) * sizeof(int32_t);
+  int err = prepare(walk_fwd_kernel<CODES>, smem);
+  if (err) return err;
+  walk_fwd_kernel<CODES><<<(unsigned)blocks, T, smem, st>>>(
+      (const int8_t*)read, (const int8_t*)path, rows, cols,
+      (const long long*)tiles, parts, (const int32_t*)bound, ld,
+      (WalkWord*)codes, (int32_t*)bound_out, every, last, (int32_t*)work,
+      hand_rows, (int32_t*)score, a_ring_size);
+  return (int)cudaGetLastError();
+}
+
+int walk_trace(const void* codes, const void* tiles, int n_tiles, int rows,
+               int cols, const void* read, const void* path, void* out,
+               int cap, int start_i, int start_j, int cont, cudaStream_t st) {
+  const size_t smem = (size_t)WALK_TROWS * WALK_TGROUPS * sizeof(WalkWord) +
+                      WALK_TROWS + WALK_TGROUPS * WALK_K;
+  int err = prepare(walk_trace_kernel, smem);
+  if (err) return err;
+  walk_trace_kernel<<<1, WALK_TRACE_THREADS, smem, st>>>(
+      (const WalkWord*)codes, (const long long*)tiles, n_tiles, rows, cols,
+      (const int8_t*)read, (const int8_t*)path, (int32_t*)out, cap, start_i,
+      start_j, cont);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The exact full-matrix traceback of read (rows,) int8 against path (cols,)
+// int8 from their last cell (rows, cols), as one tile.  codes holds
+// ceil(cols / WALK_K) * rows 16-bit words, work sa_walk_workspace(rows,
+// parts); out holds WALK_HEAD + (rows + cols + 3) / 4 int32: score, qstart,
+// pstart, matches, nm, the op count n, how the walk ended (1), one unused
+// word, then rows + cols bytes whose last n are the ops ('=', 'X', 'I',
+// 'D'), forward.  T threads a block (a multiple of 32, at most 512),
+// parts * T * WALK_K >= cols (ops/seqalign_cuda.walk_layout picks them).
+// An empty rectangle launches the walk alone.  Launches on `stream` and
+// returns the first launch error.
 extern "C" int sa_walk(const void* read, int rows, const void* path, int cols,
                        void* codes, void* work, void* out, int T, int parts,
                        void* stream) {
   const bool cells = rows > 0 && cols > 0;
-  if (rows < 0 || cols < 0 || out == nullptr || T < 32 || T % 32 ||
-      T > MAX_THREADS || parts <= 0 || (long long)parts * T * WALK_K < cols ||
+  if (rows < 0 || cols < 0 || out == nullptr || !walk_threads_ok(T) ||
+      parts <= 0 || (long long)parts * T * WALK_K < cols ||
       (cells && (read == nullptr || path == nullptr || codes == nullptr ||
                  work == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = 0;
   if (cells) {
-    cudaError_t merr =
-        cudaMemsetAsync(work, 0, (1 + (size_t)parts) * sizeof(int32_t), st);
-    if (merr != cudaSuccess) return (int)merr;
-    const int NW = T / 32;
-    int a_ring_size = 64;  // a power of two >= 64 * NW + 64 rows in flight
-    while (a_ring_size < 64 * NW + 64) a_ring_size *= 2;
-    const size_t smem = (size_t)(a_ring_size + NW * HRING) * sizeof(int32_t);
-    if ((err = prepare(walk_fwd_kernel, smem))) return err;
-    walk_fwd_kernel<<<parts, T, smem, st>>>(
-        (const int8_t*)read, rows, (const int8_t*)path, cols, parts,
-        (WalkWord*)codes, (int32_t*)work, (int32_t*)out, a_ring_size);
-    if ((err = (int)cudaGetLastError())) return err;
+    int err = walk_fwd<true>(read, path, rows, cols, nullptr, 1, parts,
+                             nullptr, 0, codes, nullptr, 0, 0, work, rows,
+                             out, T, st);
+    if (err) return err;
   }
-  const size_t smem = (size_t)WALK_TROWS * WALK_TGROUPS * sizeof(WalkWord) +
-                      WALK_TROWS + WALK_TGROUPS * WALK_K;
-  if ((err = prepare(walk_trace_kernel, smem))) return err;
-  walk_trace_kernel<<<1, WALK_TRACE_THREADS, smem, st>>>(
-      (const WalkWord*)codes, rows, cols, (const int8_t*)read,
-      (const int8_t*)path, (int32_t*)out);
-  return (int)cudaGetLastError();
+  return walk_trace(codes, nullptr, 1, rows, cols, read, path, out,
+                    rows + cols, rows, cols, 0, st);
+}
+
+// The forward pass of a blocked walk, the rectangle as one tile without
+// codes: H's rows every, 2 every, .. up to `last` (< rows) into bound (ld
+// >= cols + 1 int32 a row, column 0 first), H[rows][cols] into out[0].
+// work holds sa_walk_workspace(rows, parts).  Launches on `stream`.
+extern "C" int sa_walk_rows(const void* read, int rows, const void* path,
+                            int cols, int every, int last, void* bound,
+                            long long ld, void* work, void* out, int T,
+                            int parts, void* stream) {
+  if (rows <= 0 || cols <= 0 || every <= 0 || last >= rows || ld < cols + 1 ||
+      !walk_threads_ok(T) || parts <= 0 ||
+      (long long)parts * T * WALK_K < cols || read == nullptr ||
+      path == nullptr || work == nullptr || out == nullptr ||
+      (last >= every && bound == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return walk_fwd<false>(read, path, rows, cols, nullptr, 1, parts, nullptr,
+                         ld, nullptr, bound, every, last, work, rows, out, T,
+                         (cudaStream_t)stream);
+}
+
+// The walk codes of n_tiles tiles (tiles: n_tiles x WALK_TILE_WORDS int64 on
+// the device: first code word, r0, rows, c0, cols, top) of read against
+// path, each from its top row in bound (ld int32 a row) and `parts` blocks
+// of T threads (parts * T * WALK_K >= every tile's cols, hand_rows >= every
+// tile's rows); work holds sa_walk_workspace(hand_rows, n_tiles * parts).
+// Launches on `stream`.
+extern "C" int sa_walk_tiles(const void* read, const void* path,
+                             const void* tiles, int n_tiles, int parts,
+                             const void* bound, long long ld, void* codes,
+                             void* work, int hand_rows, int T, void* stream) {
+  if (n_tiles <= 0 || parts <= 0 || hand_rows <= 0 || !walk_threads_ok(T) ||
+      (long long)n_tiles * parts > (1LL << 30) || read == nullptr ||
+      path == nullptr || tiles == nullptr || codes == nullptr ||
+      work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return walk_fwd<true>(read, path, 0, 0, tiles, n_tiles, parts, bound, ld,
+                        codes, nullptr, 0, 0, work, hand_rows, nullptr, T,
+                        (cudaStream_t)stream);
+}
+
+// The walk from (start_i, start_j) through the codes of n_tiles tiles
+// (sa_walk_tiles'), going on from out's state with `cont`; out as sa_walk's,
+// cap = the rectangle's rows + cols.  Launches on `stream`.
+extern "C" int sa_walk_trace(const void* codes, const void* tiles, int n_tiles,
+                             const void* read, const void* path, void* out,
+                             int cap, int start_i, int start_j, int cont,
+                             void* stream) {
+  if (n_tiles <= 0 || tiles == nullptr || codes == nullptr || read == nullptr ||
+      path == nullptr || out == nullptr || start_i < 0 || start_j < 0 ||
+      start_i + start_j > cap)
+    return (int)cudaErrorInvalidValue;
+  return walk_trace(codes, tiles, n_tiles, 0, 0, read, path, out, cap,
+                    start_i, start_j, cont, (cudaStream_t)stream);
 }

@@ -1183,9 +1183,10 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
                             if pl is None:
                                 count("align.traceback.declined")
                     if pl is None:
+                        # the ladder's score v bounds the walk's columns
                         with span("align.traceback.full"):
                             pl = seqalign.traceback(rcodes, codes_of(key),
-                                                    bi, bj, device)
+                                                    bi, bj, device, score=v)
                         count("align.traceback.full_walks")
                 if pl.score < min_score:
                     continue

@@ -36,6 +36,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import profiling
 from ..utils.build_dir import build_dir, make_dir
 
 def _compile_flags() -> List[str]:
@@ -153,7 +154,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int64]
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)]
     lib.nw_path_traceback.restype = ctypes.c_int64
     lib.nw_path_traceback.argtypes = [
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
@@ -568,24 +570,35 @@ def parse_gfa(path: str):
         lib.gfa_close(handle)
 
 
+# Bytes of H and boundary rows the native full walk aims to hold
+# (seq_local_traceback walks a rectangle whose H passes them in row blocks).
+WALK_BYTES = 256 << 20
+
+
 def local_traceback(read_codes: np.ndarray, path_codes: np.ndarray,
                     end_i: int, end_j: int, match: int, mismatch: int,
-                    gap: int, pad: int, block: int):
+                    gap: int, pad: int, block: int, budget: int = WALK_BYTES):
     """(score, qstart, pstart, matches, nm, ops_str) or None.
 
     Exact-semantics C++ port of ops/seqalign.traceback's matrix + walk
-    (see seq_local_traceback in native/gfalign_host.cpp)."""
+    (see seq_local_traceback in native/gfalign_host.cpp), in row blocks
+    within `budget` bytes of H and boundary rows where the rectangle allows;
+    the cells it computes and the bytes it holds are counted
+    (align.traceback.host_cells, align.traceback.host_bytes)."""
     lib = _load()
     rd = np.ascontiguousarray(read_codes, dtype=np.int8)
     pt = np.ascontiguousarray(path_codes, dtype=np.int8)
     ops_cap = int(end_i) + int(end_j) + 2
     ops = ctypes.create_string_buffer(ops_cap)
     out5 = (ctypes.c_int32 * 5)()
+    stats = (ctypes.c_int64 * 2)()
     n_ops = lib.seq_local_traceback(
         rd.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), len(rd),
         pt.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), len(pt),
         int(end_i), int(end_j), match, mismatch, gap, pad, block,
-        out5, ops, ops_cap)
+        out5, ops, ops_cap, int(budget), stats)
+    profiling.count("align.traceback.host_cells", stats[0])
+    profiling.count("align.traceback.host_bytes", stats[1])
     if n_ops < 0:
         return None
     return (int(out5[0]), int(out5[1]), int(out5[2]), int(out5[3]),

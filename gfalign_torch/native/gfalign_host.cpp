@@ -721,22 +721,34 @@ void fq_close(FqData* h) { delete h; }
 //     (mid-row local start).
 // Only rows 0..end_i x cols 0..end_j are computed (the walk never leaves
 // that rectangle and the recurrence has no right-to-left dependency).
+// Memory: a rectangle whose H fits `budget` bytes is held whole; a larger
+// one is walked in row blocks of B rows, as the card's walk does
+// (csrc/seqalign.cu): a forward pass over two rolling rows keeps H's row
+// every B rows (the boundary rows), then each block, bottom first, is
+// computed again from its boundary row over the columns left of the walk's
+// cell, and walked.  A block recomputed from the exact boundary row holds
+// H's exact values, so the walk is the same.  B splits the budget as
+// ops/seqalign_cuda.walk_plan does: the boundary rows within one half, a
+// block's H within the other.  Where no B does both (end_i x W^2 over
+// budget^2 / 64, W = end_j + 1), B = sqrt(end_i), which holds the least,
+// about 8 W sqrt(end_i) bytes.  stats[0] gets the cells computed,
+// recomputation included, stats[1] the bytes of H and boundary rows held.
 // out5 = {score, qstart, pstart, matches, nm}; ops written forward-order
 // ('=', 'X', 'I', 'D'); returns n_ops, or -1 if ops_cap is too small.
 int64_t seq_local_traceback(const int8_t* read, int64_t lr, const int8_t* path,
                             int64_t lp, int64_t end_i, int64_t end_j,
                             int32_t match, int32_t mismatch, int32_t gap,
                             int32_t pad_code, int32_t block, int32_t* out5,
-                            char* ops, int64_t ops_cap) {
+                            char* ops, int64_t ops_cap, int64_t budget,
+                            int64_t* stats) {
   if (end_i < 0 || end_j < 0 || end_i > lr || end_j > lp) return -1;
   const int64_t W = end_j + 1;
-  std::vector<int32_t> H(static_cast<size_t>(end_i + 1) * W, 0);
-  for (int64_t i = 1; i <= end_i; i++) {
+  // row i (read char read[i - 1]) over columns 1..jmax from row `prev`
+  auto fill_row = [&](const int32_t* prev, int32_t* cur, int64_t i,
+                      int64_t jmax) {
     const int32_t rc = read[i - 1];
-    const int32_t* prev = H.data() + (i - 1) * W;
-    int32_t* cur = H.data() + i * W;
     cur[0] = 0;
-    for (int64_t j = 1; j <= end_j; j++) {
+    for (int64_t j = 1; j <= jmax; j++) {
       const int32_t pc = path[j - 1];
       const int32_t sub = (rc == pad_code || pc == pad_code)
                               ? block
@@ -749,38 +761,88 @@ int64_t seq_local_traceback(const int8_t* read, int64_t lr, const int8_t* path,
       const int32_t left = cur[j - 1] + gap;
       cur[j] = left > c ? left : c;
     }
+  };
+  // rows a block: all of them where H fits the budget; else the most whose
+  // H fits half of it, if the boundary rows then fit the other half
+  const int64_t half = budget / (8 * W);  // rows of H in half the budget
+  int64_t B = end_i;
+  if ((end_i + 1) * 4 * W > budget) {
+    B = half - 1;
+    if (B < 1 || (end_i - 1) / B > half) {
+      B = 1;
+      while ((B + 1) * (B + 1) <= end_i) B++;
+    }
   }
+  std::vector<int32_t> bound;  // H's rows B, 2B, .. below end_i
+  int64_t computed = end_i * end_j;
+  int32_t score = 0;
+  if (B < end_i) {
+    bound.assign(static_cast<size_t>((end_i - 1) / B) * W, 0);
+    std::vector<int32_t> a(W, 0), b(W, 0);
+    for (int64_t i = 1; i <= end_i; i++) {
+      fill_row(a.data(), b.data(), i, end_j);
+      if (i % B == 0 && i < end_i)
+        std::copy(b.begin(), b.end(), bound.begin() + (i / B - 1) * W);
+      std::swap(a, b);
+    }
+    score = a[end_j];
+  }
+  std::vector<int32_t> H(static_cast<size_t>(std::min(B, end_i) + 1) * W, 0);
   int64_t i = end_i, j = end_j;
-  out5[0] = H[i * W + j];  // score
   int64_t n_ops = 0;
   int32_t matches = 0, nm = 0;
-  // collect moves end->start, reverse at the end
-  while (i > 0 && j > 0 && H[i * W + j] > 0) {
-    const int32_t rc = read[i - 1];
-    const int32_t sub = (rc == path[j - 1] && rc < 4) ? match : mismatch;
-    const int32_t h = H[i * W + j];
-    char op;
-    if (h == H[(i - 1) * W + (j - 1)] + sub) {
-      op = sub == match ? '=' : 'X';
-      if (sub == match) matches++; else nm++;
-      i--; j--;
-    } else if (h == H[(i - 1) * W + j] + gap) {
-      op = 'I'; nm++; i--;
-    } else if (h == H[i * W + (j - 1)] + gap) {
-      op = 'D'; nm++; j--;
-    } else {
-      break;  // local start (c floored at 0 mid-row)
+  bool first = true;
+  for (;;) {
+    // the block holding row i: rows r0..i, its row 0 the boundary row r0
+    const int64_t r0 = B < end_i ? (i - 1) / B * B : 0;
+    int32_t* h0 = H.data();
+    if (r0 > 0)
+      std::copy(bound.begin() + (r0 / B - 1) * W,
+                bound.begin() + (r0 / B - 1) * W + j + 1, h0);
+    else
+      std::fill(h0, h0 + j + 1, 0);
+    for (int64_t r = r0 + 1; r <= i; r++)
+      fill_row(H.data() + (r - 1 - r0) * W, H.data() + (r - r0) * W, r, j);
+    if (B < end_i) computed += (i - r0) * j;
+    auto at = [&](int64_t ii, int64_t jj) { return H[(ii - r0) * W + jj]; };
+    if (first) {
+      if (B >= end_i) score = at(i, j);
+      first = false;
     }
-    if (n_ops >= ops_cap) return -1;
-    ops[n_ops++] = op;
+    // collect moves end->start, reverse at the end
+    while (i > r0 && j > 0 && at(i, j) > 0) {
+      const int32_t rc = read[i - 1];
+      const int32_t sub = (rc == path[j - 1] && rc < 4) ? match : mismatch;
+      const int32_t h = at(i, j);
+      char op;
+      if (h == at(i - 1, j - 1) + sub) {
+        op = sub == match ? '=' : 'X';
+        if (sub == match) matches++; else nm++;
+        i--; j--;
+      } else if (h == at(i - 1, j) + gap) {
+        op = 'I'; nm++; i--;
+      } else if (h == at(i, j - 1) + gap) {
+        op = 'D'; nm++; j--;
+      } else {
+        break;  // local start (c floored at 0 mid-row)
+      }
+      if (n_ops >= ops_cap) return -1;
+      ops[n_ops++] = op;
+    }
+    if (i > r0 || i == 0 || j == 0 || at(i, j) <= 0) break;  // the walk ended
   }
   for (int64_t a = 0, b = n_ops - 1; a < b; a++, b--) {
     char t = ops[a]; ops[a] = ops[b]; ops[b] = t;
   }
+  out5[0] = score;
   out5[1] = static_cast<int32_t>(i);  // qstart
   out5[2] = static_cast<int32_t>(j);  // pstart
   out5[3] = matches;
   out5[4] = nm;
+  if (stats != nullptr) {
+    stats[0] = computed;
+    stats[1] = static_cast<int64_t>((bound.size() + H.size()) * sizeof(int32_t));
+  }
   return n_ops;
 }
 

@@ -14,7 +14,9 @@ Device/host split:
   * only the selected placements (a handful per read) are tracebacked, by
     recomputing the single pair's DP: banded walks on the host; the exact
     full-matrix walk on the device of the run (on CUDA the walk-code
-    kernel, `full_walk`; on the CPU the native walk).
+    kernel, `full_walk`; on the CPU the native walk), in bounded memory
+    (row blocks) and, where the caller has the ladder's score, over the
+    columns that score leaves possible (`walk_window`).
 
 Scoring: match +1, mismatch -2, gap -3 (linear).
 """
@@ -483,27 +485,83 @@ def full_walk(read_codes: torch.Tensor, path_codes: torch.Tensor):
     return _walk(score, codes, read_codes.numpy(), path_codes.numpy())
 
 
+def walk_gaps(rows: int, score: int) -> Tuple[int, int]:
+    """(D, I): the most deletions and insertions of a local alignment over
+    at most `rows` read rows that scores `score` or more.  Its m matches,
+    x mismatches and I insertions take m + x + I <= rows rows and it
+    scores s = m - 2x - 3I - 3D, so 3x + 4I + 3D <= rows - s: D <=
+    (rows - s) // 3 and I <= (rows - s) // 4.  An alignment that ends at
+    (end_i, end_j) thus lies within diagonals j - i from end_j - end_i - D
+    to end_j - end_i + I.  The full walk's column cut (walk_window) and the
+    card's band (ops/seqalign_cuda.walk_band) both rest on this."""
+    slack = max(0, rows - int(score))
+    return slack // 3, slack // 4
+
+
+def walk_window(read: np.ndarray, path: np.ndarray, end_i: int, end_j: int,
+                score=None) -> int:
+    """The first column c0 of the rectangle that a walk from (end_i, end_j)
+    needs when the caller knows a score at most H[end_i][end_j] (the
+    ladder's): 0 without one.
+
+    A local alignment that ends at (end_i, end_j) with score s >= score
+    starts at a column no earlier than end_j - end_i - D (walk_gaps), c0
+    below.  Every cell of the walk, and every neighbour whose move test
+    fits, lies on such an alignment (the walk's moves telescope to its
+    score), so over path[c0:end_j], with column c0 taken as 0, the walk
+    sees the same values and takes the same moves.  The one exception is
+    the walk's diagonal test on a PAD cell, which takes -2 where the
+    recurrence took the block score: it can fit a neighbour whose value the
+    cut lowered.  So a rectangle with a PAD (a read masked by an earlier
+    placement) takes no cut.  `traceback` checks the cut walk's score
+    against `score` and walks again uncut below it."""
+    if score is None or score <= 0 or end_i <= 0 or end_j <= 0:
+        return 0
+    c0 = end_j - end_i - walk_gaps(end_i, score)[0]
+    if c0 <= 0 or (read[:end_i] == PAD).any() or (path[:end_j] == PAD).any():
+        return 0
+    return int(c0)
+
+
 def traceback(read: np.ndarray, path: np.ndarray,
-              end_i: int, end_j: int, device="cpu") -> Placement:
+              end_i: int, end_j: int, device="cpu", score=None) -> Placement:
     """Recompute the pair DP and walk back from (end_i, end_j) to H==0.
+
+    With `score`, a lower bound on H[end_i][end_j] (the ladder's score of
+    the pair), the walk runs over the columns `walk_window` leaves, and
+    again over the whole rectangle should its score come out below it (the
+    bound did not hold): the same Placement either way.
 
     The device of the align run picks the route.  On CUDA the walk runs on
     the card (`full_walk`: the rectangle's read and path chars go up in one
     copy, the result comes back in one).  Elsewhere the native C++ walk
     (io/native.local_traceback) runs; the full-matrix numpy row loop below
     is its oracle, taken when `native.available()` is false or the walk
-    declines."""
-    from ..io import native
-
-    on_card = torch.device(device).type == "cuda"
-    if on_card and not (0 <= end_i <= len(read) and 0 <= end_j <= len(path)):
+    declines.  Both devices walk a large rectangle in row blocks, in
+    bounded memory (ops/seqalign_cuda.walk_plan, the native walk's
+    budget)."""
+    if not (0 <= end_i <= len(read) and 0 <= end_j <= len(path)):
         raise ValueError(f"end cell ({end_i}, {end_j}) outside the "
                          f"{len(read)} x {len(path)} matrix")
     profiling.count("align.traceback.full_cells", end_i * end_j)
-    if on_card:
+    c0 = walk_window(read, path, end_i, end_j, score)
+    if c0:
+        pl = _walk_route(read[:end_i], path[c0:end_j], device)
+        if pl.score >= score:
+            return pl._replace(pstart=pl.pstart + c0, pend=end_j)
+    return _walk_route(read[:end_i], path[:end_j], device)
+
+
+def _walk_route(read: np.ndarray, path: np.ndarray, device) -> Placement:
+    """The full walk of read against path from their last cell, on the
+    route of `device`."""
+    from ..io import native
+
+    end_i, end_j = len(read), len(path)
+    if torch.device(device).type == "cuda":
         profiling.count("align.traceback.cuda")
         seq = torch.from_numpy(np.concatenate(
-            [read[:end_i], path[:end_j]]).astype(np.int8, copy=False)).to(device)
+            [read, path]).astype(np.int8, copy=False)).to(device)
         score, qstart, pstart, matches, nm, ops = full_walk(seq[:end_i],
                                                             seq[end_i:])
         return Placement(score, qstart, end_i, pstart, end_j,

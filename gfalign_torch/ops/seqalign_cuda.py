@@ -5,17 +5,19 @@ K3 (`sa_banded_fwd`) replaces gfalign_tpu/ops/seqalign_pallas.py
 `_banded_kernel_factory` together with the strip assembly in front of it;
 K4 (`sa_pairs_fwd`, read i against path i) and K5 (`sa_local_fwd`, every
 read against every path) replace `_kernel_factory`.  The walk (`sa_walk`:
-the walk codes of one pair's rectangle, then the walk over them) replaces
-no TPU kernel: the JAX package walks on the host.  The wrappers check
+the walk codes of one pair's rectangle, then the walk over them; for a
+large rectangle `sa_walk_rows`, `sa_walk_tiles` and `sa_walk_trace`, the
+same walk in row blocks) replaces no TPU kernel: the JAX package walks on
+the host.  The wrappers check
 device, dtype, shape and contiguity, launch on PyTorch's current stream
 without synchronising, and count their launches in `LAUNCHES` (the
 registry's counters kernels.seqalign.<kernel>).  They never
 fall back to the plain versions of ops/seqalign.py: a CUDA tensor launches a
 kernel or raises.  The launch geometry is chosen by the small pure
-functions `banded_layout`, `pairs_layout` and `walk_layout`, which run
-anywhere; the `_launch_*` functions take the library as an argument, so
-that the host build of the source (cuda_build.build_host) runs them on
-CPU tensors.
+functions `banded_layout`, `pairs_layout`, `walk_layout` and
+`walk_plan`, which run anywhere; the `_launch_*` functions take the
+library as an argument, so that the host build of the source
+(cuda_build.build_host) runs them on CPU tensors.
 
 The library is built at first use with nvcc into build/gfalign_torch/ by
 ops/cuda_build.py, whose `build("seqalign")` does it explicitly and returns
@@ -26,20 +28,33 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils import profiling
 from . import cuda_build
+from .seqalign import PAD, walk_gaps
 
 SCRATCH_BYTES = 1 << 30   # K4 workspace / K5 strip hand-over per launch
+SMEM_MAX = 227 * 1024     # dynamic shared memory a block may take (sm_90)
 HOST_SMS = 132            # SMs assumed by the host build (an H100's count)
 GROUP_MAX = 32            # K3 threads a pair in the group kernel (one warp)
 WALK_K = 8                # columns a thread of the walk's forward kernel
 WALK_FWD_THREADS = 64     # threads a block of the walk's forward kernel
 WALK_HEAD = 8             # int32 words of the walk's result before its ops
+WALK_TILE_WORDS = 6       # int64 words of a tile of the walk
+WALK_BAND_ROWS = 1024     # rows of a row block of the walk's band, at most
+
+
+# Device bytes of walk codes that one tile or one whole-width row block of
+# the walk may hold.  walk_plan and walk_band size the rest from it: the
+# boundary rows within 5/4 of it, the forward pass's hand-over columns
+# within 3/4, the band's codes within 7/4.  The default walks clr.align's
+# largest rectangle (0.84 G cells) as one tile and keeps a walk of
+# 300 k x 600 k cells under 1 GiB.
+WALK_BUDGET = 256 << 20
 
 LAUNCHES = profiling.view(profiling.COUNTS, "kernels.seqalign.",
                          ("banded", "pairs", "cross", "walk"))
@@ -50,23 +65,33 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.sa_banded_rows.argtypes = [vp, ci, ci, vp, vp, ci, vp]
     lib.sa_banded_fwd.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp, ci, ci,
-                                  vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+                                  vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                  vp]
     lib.sa_local_strip.argtypes = [ci]
     lib.sa_local_fwd.argtypes = [vp, ci, ci, vp, ci, ci, vp, vp, vp]
     lib.sa_pairs_workspace.argtypes = [ci, ci, ci]
     lib.sa_pairs_workspace.restype = ctypes.c_longlong
     lib.sa_pairs_fwd.argtypes = [vp, ci, ci, vp, ci, vp, vp, ci, ci, ci, vp]
+    ll = ctypes.c_longlong
     lib.sa_walk_workspace.argtypes = [ci, ci]
-    lib.sa_walk_workspace.restype = ctypes.c_longlong
+    lib.sa_walk_workspace.restype = ll
     lib.sa_walk.argtypes = [vp, ci, vp, ci, vp, vp, vp, ci, ci, vp]
+    lib.sa_walk_rows.argtypes = [vp, ci, vp, ci, ci, ci, vp, ll, vp, vp, ci,
+                                 ci, vp]
+    lib.sa_walk_tiles.argtypes = [vp, vp, vp, ci, ci, vp, ll, vp, vp, ci, ci,
+                                  vp]
+    lib.sa_walk_trace.argtypes = [vp, vp, ci, vp, vp, vp, ci, ci, ci, ci, vp]
     for fn in (lib.sa_banded_rows, lib.sa_banded_fwd,
                lib.sa_local_strip, lib.sa_local_fwd, lib.sa_pairs_fwd,
-               lib.sa_walk, lib.sa_walk_k, lib.sa_walk_head):
+               lib.sa_walk, lib.sa_walk_rows, lib.sa_walk_tiles,
+               lib.sa_walk_trace, lib.sa_walk_k, lib.sa_walk_head,
+               lib.sa_walk_tile_words):
         fn.restype = ci
-    if (lib.sa_walk_k(), lib.sa_walk_head()) != (WALK_K, WALK_HEAD):
-        raise RuntimeError(f"the walk kernel's layout (WALK_K, WALK_HEAD) = "
-                           f"{(lib.sa_walk_k(), lib.sa_walk_head())} differs "
-                           f"from this module's {(WALK_K, WALK_HEAD)}")
+    got = (lib.sa_walk_k(), lib.sa_walk_head(), lib.sa_walk_tile_words())
+    if got != (WALK_K, WALK_HEAD, WALK_TILE_WORDS):
+        raise RuntimeError(f"the walk kernel's layout (WALK_K, WALK_HEAD, "
+                           f"WALK_TILE_WORDS) = {got} differs from this "
+                           f"module's {(WALK_K, WALK_HEAD, WALK_TILE_WORDS)}")
     return lib
 
 
@@ -108,12 +133,67 @@ def pairs_layout(lp: int, pairs: int, sms: int) -> Tuple[int, int, int]:
     return K, T, -(-lp // (K * T))
 
 
-def walk_layout(cols: int) -> Tuple[int, int]:
+def walk_layout(cols: int, threads: int = WALK_FWD_THREADS) -> Tuple[int, int]:
     """(threads a block T, blocks) of the walk's forward kernel over `cols`
-    columns: two warps a block of WALK_K columns a thread, 512 columns a
-    block (the fastest of 4, 8 or 16 columns a thread and one to four warps
-    a block at clr.align's sizes, PERF.md section 6)."""
-    return WALK_FWD_THREADS, max(1, -(-cols // (WALK_K * WALK_FWD_THREADS)))
+    columns: by default two warps a block of WALK_K columns a thread, 512
+    columns a block (the fastest of 4, 8 or 16 columns a thread and one to
+    four warps a block at clr.align's sizes, PERF.md section 6)."""
+    return threads, max(1, -(-cols // (WALK_K * threads)))
+
+
+def walk_groups(cols: int) -> int:
+    """Column groups of WALK_K columns over `cols` columns."""
+    return -(-cols // WALK_K)
+
+
+class WalkPlan(NamedTuple):
+    """How a walk of rows x cols cells runs (walk_plan)."""
+    whole: bool        # one tile: codes of the whole rectangle
+    every: int         # rows of a row block (boundary rows every `every`)
+    rows_threads: int  # threads a block of the forward pass
+    block_rows: int    # rows of a whole-width row block (a multiple of every)
+
+
+def walk_plan(rows: int, cols: int, budget: int = WALK_BUDGET) -> WalkPlan:
+    """The walk's sizes for a rectangle of rows x cols cells under
+    `budget` (WALK_BUDGET): one tile when its codes fit the budget;
+    otherwise row blocks of `every` rows (at most WALK_BAND_ROWS, at least
+    what keeps the boundary rows within 5/4 of the budget), a forward pass
+    of as few threads a block as keep its hand-over columns within 3/4 of
+    it (WALK_FWD_THREADS to 512), and whole-width blocks of as many row
+    blocks as fit the budget (one at least)."""
+    per_row = 2 * walk_groups(cols)            # code bytes of a row
+    if rows * per_row <= budget:
+        return WalkPlan(True, rows, WALK_FWD_THREADS, rows)
+    every = max(-(-rows * (cols + 1) * 4 // (budget * 5 // 4)),
+                min(WALK_BAND_ROWS, budget // per_row), 1)
+    every = min(every, rows)
+    threads = WALK_FWD_THREADS
+    while threads < 512 and (walk_layout(cols, threads)[1] * rows * 4
+                             > budget * 3 // 4):
+        threads *= 2
+    return WalkPlan(False, every, threads,
+                    every * max(1, budget // (per_row * every)))
+
+
+def walk_band(rows: int, cols: int, score: int, every: int,
+              budget: int = WALK_BUDGET) -> Optional[List[Tuple[int, int, int, int]]]:
+    """(r0, rows, c0, cols) of each row block of `every` rows, cut to the
+    band that holds every walk from (rows, cols) with that score (its
+    cells lie on diagonals j - i within cols - rows - D .. cols - rows + I,
+    seqalign.walk_gaps), or None where the band's codes pass 7/4 of the
+    budget."""
+    D, I = walk_gaps(rows, score)
+    d_lo, d_hi = cols - rows - D, cols - rows + I
+    out = []
+    for r0 in range(0, rows, every):
+        r1 = min(rows, r0 + every)
+        c0 = min(cols, max(0, r0 + d_lo))
+        c1 = max(c0, min(cols, r1 + d_hi))
+        out.append((r0, r1 - r0, c0, c1 - c0))
+    if sum(walk_groups(c) * n for _, n, _, c in out) * 2 > budget * 7 // 4:
+        return None
+    return out
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
@@ -151,12 +231,19 @@ def _launch_banded(lib, arena, cum_off, base_ptr, plen, read_pool, read_idx,
         raise RuntimeError(f"sa_banded_rows launch failed: cudaError {err} (N={N})")
     order = torch.argsort(rows, descending=True, stable=True).to(torch.int32)
     out = torch.empty((4, N), dtype=torch.int32, device=device)
+    # the block kernel stages a pair's strip (its rows and the band) in
+    # shared memory: sized by the pool's width, or where that passes the
+    # card's limit by the launch's longest read (which waits for the rows)
+    max_rows = lr
+    band = -(-(width // lanes) // 32) * 32 * lanes     # the block's lanes
+    if group == 0 and 8 * S + lr + band + 12 > SMEM_MAX:
+        max_rows = int(rows.max())
     err = lib.sa_banded_fwd(arena.data_ptr(), arena.numel(), cum_off.data_ptr(),
                             base_ptr.data_ptr(), plen.data_ptr(), P, S,
                             read_pool.data_ptr(), R, lr, read_idx.data_ptr(),
                             path_idx.data_ptr(), deltas.data_ptr(),
                             order.data_ptr(), rows.data_ptr(), out.data_ptr(),
-                            N, int(width), lanes, group, stream)
+                            N, int(width), lanes, group, max_rows, stream)
     if err != 0:
         raise RuntimeError(f"sa_banded_fwd launch failed: cudaError {err} "
                            f"(N={N}, lr={lr}, width={width}, S={S}, "
@@ -298,29 +385,122 @@ def local_forward_cuda(read_codes, path_codes, pairwise: bool):
     return out[0], out[1], out[2]
 
 
-def _launch_walk(lib, read_codes, path_codes, stream):
-    """The walk (sa_walk) on checked (rows,) and (cols,) codes of any one
-    device, from their last cell: its result words, (WALK_HEAD + (rows +
-    cols + 3) // 4,) int32 (walk_result reads them), and its walk codes
-    (walk_codes reads them), both on that device.  Every buffer is
-    allocated here: the codes (cells / 4 bytes), the hand-over columns and
-    the result."""
+def _walk_alloc(shape, dtype, device) -> torch.Tensor:
+    """A buffer of the walk, its bytes counted (kernels.seqalign.walk_bytes)."""
+    t = torch.empty(shape, dtype=dtype, device=device)
+    profiling.count("kernels.seqalign.walk_bytes", t.numel() * t.element_size())
+    return t
+
+
+def _walk_err(name: str, err: int, **shape) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err} ("
+                           + ", ".join(f"{k}={v}" for k, v in shape.items()) + ")")
+
+
+def _walk_state(out: torch.Tensor) -> Tuple[int, int, int, int]:
+    """(score, i, j, how it ended) of a walk's result words, on the host."""
+    w = out[:7].cpu().tolist()
+    return w[0], w[1], w[2], w[6]
+
+
+def _launch_walk(lib, read_codes, path_codes, stream,
+                 budget: int = WALK_BUDGET):
+    """The walk on checked (rows,) and (cols,) codes of any one device, from
+    their last cell: its result words, (WALK_HEAD + (rows + cols + 3) // 4,)
+    int32 (walk_result reads them), and, for a rectangle walked as one tile,
+    its walk codes (walk_codes reads them; None otherwise), both on that
+    device.  Every buffer is allocated here and counted
+    (kernels.seqalign.walk_bytes); `budget` bounds them (walk_plan).
+
+    One tile (the codes fit the budget): sa_walk, the forward pass with
+    codes and the walk, without waiting.  Otherwise row blocks, waiting on
+    the device between launches: sa_walk_rows (the forward pass, boundary
+    rows every `every` rows, the score), then, for a rectangle without PAD
+    whose band fits (walk_band), the band's row blocks in one sa_walk_tiles
+    launch and one sa_walk_trace; else (or should the walk leave the band)
+    whole-width blocks of plan.block_rows rows, bottom first, one
+    sa_walk_tiles and one sa_walk_trace each, each trace going on from the
+    last."""
     rows, cols = read_codes.shape[0], path_codes.shape[0]
     device = read_codes.device
-    T, parts = walk_layout(cols)
-    codes = torch.empty((parts * T * rows,), dtype=torch.int16, device=device)
-    work = torch.empty((lib.sa_walk_workspace(rows, parts),),
-                       dtype=torch.int32, device=device)
-    out = torch.empty((WALK_HEAD + (rows + cols + 3) // 4,), dtype=torch.int32,
-                      device=device)
-    err = lib.sa_walk(read_codes.data_ptr(), rows, path_codes.data_ptr(), cols,
-                      codes.data_ptr(), work.data_ptr(), out.data_ptr(), T,
-                      parts, stream)
-    if err != 0:
-        raise RuntimeError(f"sa_walk launch failed: cudaError {err} "
-                           f"(rows={rows}, cols={cols}, T={T}, parts={parts})")
+    plan = walk_plan(rows, cols, budget)
+    out = _walk_alloc((WALK_HEAD + (rows + cols + 3) // 4,), torch.int32, device)
+    if plan.whole:
+        T, parts = walk_layout(cols)
+        codes = _walk_alloc((walk_groups(cols) * rows,), torch.int16, device)
+        work = _walk_alloc((lib.sa_walk_workspace(rows, parts),), torch.int32,
+                           device)
+        _walk_err("sa_walk", lib.sa_walk(
+            read_codes.data_ptr(), rows, path_codes.data_ptr(), cols,
+            codes.data_ptr(), work.data_ptr(), out.data_ptr(), T, parts, stream),
+            rows=rows, cols=cols, T=T, parts=parts)
+        profiling.count("kernels.seqalign.walk")
+        profiling.count("kernels.seqalign.walk_cells", rows * cols)
+        profiling.count("kernels.seqalign.walk_blocks")
+        return out, codes
+    every, ld = plan.every, cols + 1
+    last = (rows - 1) // every * every          # the last boundary row
+    bound = _walk_alloc((max(1, last // every) * ld,), torch.int32, device)
+    T, parts = walk_layout(cols, plan.rows_threads)
+    work = _walk_alloc((lib.sa_walk_workspace(rows, parts),), torch.int32, device)
+    _walk_err("sa_walk_rows", lib.sa_walk_rows(
+        read_codes.data_ptr(), rows, path_codes.data_ptr(), cols, every, last,
+        bound.data_ptr(), ld, work.data_ptr(), out.data_ptr(), T, parts, stream),
+        rows=rows, cols=cols, every=every, T=T, parts=parts)
+    del work
     profiling.count("kernels.seqalign.walk")
-    return out, codes
+    profiling.count("kernels.seqalign.walk_cells", rows * cols)
+    score = _walk_state(out)[0]
+
+    def buffers(tiles):
+        """Codes and workspace for `tiles` ((r0, rows, c0, cols) each)."""
+        T, parts = walk_layout(max(1, max(c for _, _, _, c in tiles)))
+        words = sum(walk_groups(c) * n for _, n, _, c in tiles)
+        hand_rows = max(n for _, n, _, _ in tiles)
+        return (_walk_alloc((max(1, words),), torch.int16, device),
+                _walk_alloc((lib.sa_walk_workspace(hand_rows, len(tiles) * parts),),
+                            torch.int32, device))
+
+    def tiles_walk(tiles, start, cont, codes, work):
+        """Codes of `tiles` ((r0, rows, c0, cols) each) into `codes`, then
+        the walk from `start` through them; (i, j, how it ended)."""
+        width = max(c for _, _, _, c in tiles)
+        T, parts = walk_layout(max(1, width))
+        table, off = [], 0
+        for r0, n, c0, c in tiles:
+            table.append((off, r0, n, c0, c, r0 // every - 1))
+            off += walk_groups(c) * n
+        tab = torch.tensor(table, dtype=torch.int64).to(device)
+        hand_rows = max(n for _, n, _, _ in tiles)
+        _walk_err("sa_walk_tiles", lib.sa_walk_tiles(
+            read_codes.data_ptr(), path_codes.data_ptr(), tab.data_ptr(),
+            len(tiles), parts, bound.data_ptr(), ld, codes.data_ptr(),
+            work.data_ptr(), hand_rows, T, stream),
+            tiles=len(tiles), width=width, T=T, parts=parts)
+        _walk_err("sa_walk_trace", lib.sa_walk_trace(
+            codes.data_ptr(), tab.data_ptr(), len(tiles), read_codes.data_ptr(),
+            path_codes.data_ptr(), out.data_ptr(), rows + cols, start[0],
+            start[1], int(cont), stream), tiles=len(tiles), start=start)
+        profiling.count("kernels.seqalign.walk_cells", sum(n * c for _, n, _, c in tiles))
+        profiling.count("kernels.seqalign.walk_blocks", len(tiles))
+        return _walk_state(out)[1:]
+
+    band = walk_band(rows, cols, score, every, budget)
+    if (band is not None and not bool((read_codes == PAD).any())
+            and not bool((path_codes == PAD).any())):
+        if tiles_walk(band, (rows, cols), False, *buffers(band))[2] == 1:
+            return out, None
+    i, j, cont = rows, cols, False
+    bufs = buffers([(0, min(rows, plan.block_rows), 0, cols)])
+    while True:                     # whole-width blocks, bottom first
+        r0 = max(0, -(-(i - plan.block_rows) // every) * every)
+        i, j, ended = tiles_walk([(r0, i - r0, 0, j)], (i, j), cont, *bufs)
+        if ended == 1:
+            return out, None
+        if ended != 0 or i != r0:
+            raise RuntimeError(f"the walk left its row block ({ended}, {i}, {j})")
+        cont = True
 
 
 def walk_result(out: torch.Tensor, rows: int, cols: int):
@@ -349,8 +529,9 @@ def full_walk_cuda(read_codes, path_codes):
     """(score, qstart, pstart, matches, nm, ops) of the exact full-matrix
     traceback of read_codes (rows,) against path_codes (cols,), int8 and
     contiguous on one CUDA device, from the rectangle's last cell
-    (rows, cols): one sa_walk launch and one copy to the host, which waits
-    for it."""
+    (rows, cols): _launch_walk (one sa_walk launch for a rectangle whose
+    codes fit WALK_BUDGET, row blocks in bounded memory for a larger one)
+    and one copy of the result to the host, which waits for it."""
     device = _cuda_device(read_codes, "full_walk_cuda")
     _check("read_codes", read_codes, torch.int8, 1, device)
     _check("path_codes", path_codes, torch.int8, 1, device)

@@ -16,11 +16,15 @@ import pytest
 import torch
 
 from gfalign_torch import synth
-from gfalign_torch.bench_seqalign import WALK_CASES, WALK_CLR, clr_pair, walk_case
+from gfalign_torch.bench_seqalign import (WALK_BLOCK_RUNS, WALK_CASES, WALK_CLR,
+                                          clr_pair, ultra_long_banded_inputs,
+                                          walk_block_case, walk_budget, walk_case,
+                                          walk_mode_patches)
 from gfalign_torch.cli.main import main
 from gfalign_torch.engine.evaluate import evaluate_candidates
 from gfalign_torch.ops import nw_cuda, seqalign, seqalign_cuda
 from gfalign_torch.ops.nw_path import Step, nw_best_scores_ref, nw_pair_scores_ref
+from gfalign_torch.utils import profiling
 from tests.test_torch_goldens import port_search_inputs
 
 pytestmark = pytest.mark.cuda
@@ -225,6 +229,19 @@ def test_banded_kernel_read_pool_off_a_word(cuda):
                                                            width=width))
 
 
+@pytest.mark.parametrize("width", [1024, 2048])
+def test_banded_kernel_at_ultra_long_reads(width, cuda):
+    """K3 at ont_r10.align's shape: a read pool padded to 262,144 columns,
+    three reads over 131,072 live rows (the longest 201.6 kb), so int64
+    keys and the block kernel's strip sized by the longest read; equal to
+    the plain version on the same inputs."""
+    args = tuple(x.to(cuda) for x in ultra_long_banded_inputs())
+    got = seqalign_cuda.banded_arena_scores_cuda(*args, width)
+    want = seqalign.banded_arena_scores_ref(*args, width)
+    assert_outputs_equal(got, want)
+    assert int(got[1].max()) > 1 << 17
+
+
 def test_seqalign_kernels_reject_bad_inputs(cuda):
     reads, paths = code_grid(1, 4, 32).to(cuda), code_grid(2, 4, 48).to(cuda)
     with pytest.raises(TypeError):
@@ -275,6 +292,58 @@ def test_walk_kernel_codes_match_plain(case, cuda):
     _, want = seqalign.walk_codes_ref(r, p)
     np.testing.assert_array_equal(seqalign_cuda.walk_codes(codes.cpu(), ei, ej),
                                   want.numpy()[1:, 1:])
+
+
+def card_walk(read, path, cuda, budget):
+    """The walk on the card of read against path from their last cell
+    under `budget`: (score, qstart, pstart, matches, nm, ops), its blocks."""
+    r = torch.from_numpy(np.ascontiguousarray(read)).to(cuda)
+    p = torch.from_numpy(np.ascontiguousarray(path)).to(cuda)
+    before = profiling.snapshot()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    out, _ = seqalign_cuda._launch_walk(seqalign_cuda._lib(), r, p, stream, budget)
+    return (seqalign_cuda.walk_result(out.cpu(), len(read), len(path)),
+            profiling.since(before)["counts"]["kernels.seqalign.walk_blocks"])
+
+
+@pytest.mark.parametrize("case, mode", WALK_BLOCK_RUNS)
+def test_blocked_walk_kernel_matches_unblocked_and_plain(case, mode, cuda, monkeypatch):
+    """The walk on the card cut to the ladder's score's columns, in row
+    blocks of 64 rows (the budget forced small) or as one tile, against the
+    unblocked walk over the whole rectangle and the plain version."""
+    read, path, ei, ej, score = walk_block_case(case)
+    want = seqalign.full_walk(torch.from_numpy(read[:ei].copy()),
+                              torch.from_numpy(path[:ej].copy()))
+    whole, _ = card_walk(read[:ei], path[:ej], cuda, walk_budget("whole", ej))
+    assert whole == want
+    c0 = seqalign.walk_window(read, path, ei, ej, score)
+    for name, value in walk_mode_patches(mode).items():
+        monkeypatch.setattr(seqalign_cuda, name, value)
+    got, blocks = card_walk(read[:ei], path[c0:ej], cuda, walk_budget(mode, ej - c0))
+    assert got[:2] + (got[2] + c0,) + got[3:] == want
+    assert (blocks == 1) == (mode == "whole")
+
+
+@pytest.mark.parametrize("case", list(WALK_CLR))
+def test_blocked_walk_kernel_at_clr_sizes(case, cuda, monkeypatch):
+    """The CLR-sized pairs, ending at K4's best cell, walked in the band's
+    row blocks, in whole-width ones and as one tile: the same walk."""
+    lr, lp, pad = WALK_CLR[case]
+    read, path = clr_pair(np.random.default_rng(lr), lr, lp, pad)
+    _, bi, bj = seqalign.batched_pair_scores(torch.from_numpy(read[None]).to(cuda),
+                                             torch.from_numpy(path[None]).to(cuda))
+    read, path = read[:int(bi[0])], path[:int(bj[0])]
+    whole, _ = card_walk(read, path, cuda, walk_budget("whole", len(path)))
+    for mode, block_rows in (("band", 8192), ("rows", 2048)):
+        with monkeypatch.context() as patch:
+            for name, value in walk_mode_patches(mode).items():
+                patch.setattr(seqalign_cuda, name, value)
+            budget = walk_budget(mode, len(path), block_rows)
+            plan = seqalign_cuda.walk_plan(len(read), len(path), budget)
+            got, blocks = card_walk(read, path, cuda, budget)
+        assert got == whole and blocks > 1, mode
+        if mode == "band" and not pad:  # the band's blocks, one launch
+            assert blocks == -(-len(read) // plan.every)
 
 
 def test_walk_kernel_rejects_bad_inputs(cuda, monkeypatch):

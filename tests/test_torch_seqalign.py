@@ -3,16 +3,20 @@ against the JAX package: the XLA scans and the Pallas kernels in interpret
 mode, on the same numpy inputs.  Everything is int32 or bool, so the
 tolerance is exact equality."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from gfalign_tpu.ops import seqalign as jax_seqalign
 from gfalign_tpu.ops import seqalign_pallas as jax_pallas
-from gfalign_torch.bench_seqalign import WALK_CASES, walk_case
+from gfalign_torch.bench_seqalign import (WALK_BLOCK_CASES, WALK_CASES,
+                                          walk_block_case, walk_case)
 from gfalign_torch.engine.graph_align import DevicePools
 from gfalign_torch.io import native
 from gfalign_torch.ops import seqalign
+from gfalign_torch.utils import profiling
 from tests.test_align_banded import _mini_arena_fixture
 
 PAD = seqalign.PAD
@@ -314,3 +318,48 @@ def test_full_walk_plain_matches_native_and_oracles(case):
         assert ei == 0 and ej > 0
     if case == "column-0":
         assert ej == 0 and ei > 0
+
+
+@pytest.mark.parametrize("case", WALK_BLOCK_CASES)
+def test_cut_and_blocked_walks_match_plain(case):
+    """The walk cut to the columns the ladder's score leaves
+    (seqalign.traceback with `score`, the native route) and the native walk
+    in row blocks (its H budget forced to a few rows) against the plain
+    walk codes and their walk over the whole rectangle, field for field:
+    seeded pairs, a net deletion drift, PAD-masked rows (no cut), ties at
+    the window's first column, several blocks and one."""
+    read, path, ei, ej, score = walk_block_case(case)
+    plain = seqalign.full_walk(torch.from_numpy(read[:ei].copy()),
+                               torch.from_numpy(path[:ej].copy()))
+    s, qstart, pstart, matches, nm, ops = plain
+    want = seqalign.Placement(s, qstart, ei, pstart, ej, seqalign._runs(ops),
+                              matches, nm)
+    assert s == score and seqalign._traceback_py(read, path, ei, ej) == want
+    c0 = seqalign.walk_window(read, path, ei, ej, score)
+    assert (c0 == 0) == (case == "pad-masked")
+    assert pstart >= c0
+    if case == "left-edge-ties":          # the alignment starts at c0 itself
+        assert (qstart, pstart) == (0, c0)
+    assert seqalign.traceback(read, path, ei, ej, score=score) == want
+    assert seqalign.traceback(read, path, ei, ej, score=score + 1) == want
+    # the cut rectangle under a budget of 96 rows of H (blocks of 47 rows
+    # and the boundary rows within it; one block: the whole), and the uncut
+    # one under 17 rows, which no split fits: blocks of sqrt(ei) rows
+    def walk(c0, budget):
+        before = profiling.snapshot()
+        got = native.local_traceback(read[:ei], path[c0:ej], ei, ej - c0,
+                                     seqalign.MATCH, seqalign.MISMATCH,
+                                     seqalign.GAP, seqalign.PAD,
+                                     seqalign._BLOCK, budget=budget)
+        counts = profiling.since(before)["counts"]
+        return got, counts["align.traceback.host_bytes"]
+
+    rows = ei + 1 if case == "one-block" else 96
+    budget = 4 * (ej - c0 + 1) * rows
+    got, held = walk(c0, budget)
+    assert got[:2] + (got[2] + c0,) + got[3:] == plain
+    assert held <= budget
+    got, held = walk(0, 4 * (ej + 1) * 17)
+    assert got == plain
+    root = math.isqrt(ei)
+    assert held == 4 * (ej + 1) * (root + 1 + (ei - 1) // root)

@@ -16,10 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from gfalign_torch.bench_seqalign import WALK_CASES, walk_case
+from gfalign_torch.bench_seqalign import (WALK_BLOCK_RUNS, WALK_CASES,
+                                          walk_block_case, walk_budget,
+                                          walk_mode_patches,
+                                          walk_case)
 from gfalign_torch.io import native
 from gfalign_torch.ops import cuda_build, seqalign, seqalign_cuda
 from gfalign_torch.ops.seqalign import PAD
+from gfalign_torch.utils import profiling
 
 
 @pytest.fixture(scope="module")
@@ -238,6 +242,26 @@ def test_k3_wide_keys_on_the_host(host_lib):
     assert_same(got, seqalign.banded_arena_scores_ref(*pools, idx, idx % 3, deltas, 16))
 
 
+def test_k3_block_kernel_sizes_its_strip_by_the_longest_read(host_lib):
+    # a pool padded to 262,144 columns (a read over 131,072 bases pads it
+    # so): at a band of 2048 the pool's width would ask for more shared
+    # memory than a block may take; the launch's longest read sizes it
+    rng, live = np.random.default_rng(18), 400
+    lr = 1 << 18
+    pools = arena_pools(rng, 3, 4, 64, 3)
+    reads = torch.full((3, lr), PAD, dtype=torch.int8)
+    for r in range(3):
+        reads[r, :live - 40 * r] = torch.from_numpy(
+            rng.integers(0, 4, live - 40 * r).astype(np.int8))
+    pools = pools[:4] + (reads,)
+    idx = torch.tensor([0, 1, 2, 1], dtype=torch.int32)
+    deltas = torch.tensor([0, -30, 5, 40], dtype=torch.int32)
+    assert seqalign_cuda.banded_layout(2048) == (16, 0)
+    assert 8 * pools[1].shape[1] + lr + 2048 + 12 > seqalign_cuda.SMEM_MAX
+    got = run_banded(host_lib, pools, idx, idx % 3, deltas, 2048)
+    assert_same(got, seqalign.banded_arena_scores_ref(*pools, idx, idx % 3, deltas, 2048))
+
+
 def test_k5_on_the_host_matches_plain(host_lib):
     rng = np.random.default_rng(9)
     reads, paths = code_grid(rng, 7, 50), code_grid(rng, 5, 2100)  # two strips
@@ -324,8 +348,10 @@ def test_walk_codes_on_the_host_match_plain(case, host_lib):
 
 
 def test_walk_layout_constants_match_the_library(host_lib, monkeypatch):
-    assert (host_lib.sa_walk_k(), host_lib.sa_walk_head()) == (
-        seqalign_cuda.WALK_K, seqalign_cuda.WALK_HEAD)
+    assert (host_lib.sa_walk_k(), host_lib.sa_walk_head(),
+            host_lib.sa_walk_tile_words()) == (
+        seqalign_cuda.WALK_K, seqalign_cuda.WALK_HEAD,
+        seqalign_cuda.WALK_TILE_WORDS)
     monkeypatch.setattr(seqalign_cuda, "WALK_K", 2 * seqalign_cuda.WALK_K)
     with pytest.raises(RuntimeError, match="walk kernel's layout"):
         seqalign_cuda._bind(host_lib)
@@ -340,6 +366,42 @@ def test_walk_layouts_on_the_host(threads, host_lib, monkeypatch):
     read, path, ei, ej = walk_case("several-tiles")
     assert ei > 512 and ej > 512
     assert run_walk(host_lib, read, path, ei, ej) == native_walk(read, path, ei, ej)
+
+
+@pytest.mark.parametrize("case, mode", WALK_BLOCK_RUNS)
+def test_blocked_walk_on_the_host_matches_plain(case, mode, host_lib, monkeypatch):
+    """The walk cut to the ladder's score's columns (seqalign.walk_window),
+    as one tile and in row blocks of 64 rows (the budget forced small),
+    against the plain walk codes and their walk over the whole rectangle,
+    field for field: seeded pairs, a net deletion drift, PAD-masked rows
+    (no cut, and whole-width blocks for the band), ties at the window's
+    first column, several blocks and one."""
+    read, path, ei, ej, score = walk_block_case(case)
+    want = seqalign.full_walk(torch.from_numpy(read[:ei].copy()),
+                              torch.from_numpy(path[:ej].copy()))
+    c0 = seqalign.walk_window(read, path, ei, ej, score)
+    budget = walk_budget(mode, ej - c0)
+    for name, value in walk_mode_patches(mode).items():
+        monkeypatch.setattr(seqalign_cuda, name, value)
+    plan = seqalign_cuda.walk_plan(ei, ej - c0, budget)
+    assert plan.whole == (mode == "whole")
+    before = profiling.snapshot()
+    out, codes = seqalign_cuda._launch_walk(
+        host_lib, torch.from_numpy(read[:ei].copy()),
+        torch.from_numpy(path[c0:ej].copy()), None, budget)
+    got = seqalign_cuda.walk_result(out, ei, ej - c0)
+    assert got[0] >= score
+    assert got[:2] + (got[2] + c0,) + got[3:] == want
+    counts = profiling.since(before)["counts"]
+    blocks = counts["kernels.seqalign.walk_blocks"]
+    assert counts["kernels.seqalign.walk"] == 1
+    assert counts["kernels.seqalign.walk_cells"] >= ei * (ej - c0)
+    if mode == "whole":
+        assert blocks == 1 and codes is not None
+    elif mode.startswith("band") and case != "pad-masked":
+        assert blocks == -(-ei // plan.every) > 2    # the band's blocks, once
+    else:
+        assert 1 <= blocks <= -(-ei // plan.block_rows)
 
 
 def test_walk_refused_launch_raises(host_lib, monkeypatch):
