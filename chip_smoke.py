@@ -61,6 +61,18 @@ Phases (each prints a line; any failure raises and exits non-zero):
      read at 99% whose alignment ends at the path's end, no cut), whose
      score must equal K4's best at its end cell and whose peak device
      memory must stay within 1 GiB;
+ 8c. the banded walk kernel (sa_bandtrace, through
+     ops/seqalign_cuda.banded_walks_cuda) against the native host walk,
+     bit-exact, at clr.align's walk shapes (waves of 1, 16 and 144
+     CLR-sized walks at band 512, 16 at band 1,024) and ont_r10.align's
+     (the reads of 3-201.6 kb of bench_seqalign.ultra_long_band_walks in
+     one wave at bands 1,024 and 2,048, and the 201.6 kb walk alone): the
+     wave as the align mode calls it (one upload, the launches, one copy
+     back; host clock), its kernels' device time (torch.profiler), the
+     bound (8 int32 operations a band cell), the plain version (the first
+     rows of the longest walk, scaled: its codes there must equal the
+     kernel's, and its walk of the first CLR walk the kernel's) and the
+     host walks' time;
   9. `align` end to end through gfalign_torch.cli.main.main on CUDA, three
      runs, each GAF equal to its golden in tests/data/ (md5 and record
      count) with the launch counters zeroed before and read after: the
@@ -69,9 +81,9 @@ Phases (each prints a line; any failure raises and exits non-zero):
      must launch K3), a small seeded run whose hand-made reads end on the
      band edge at both band widths (must launch K4), and the exhaustive
      engine on a 34-segment graph (must launch K5); every banded traceback
-     of every run must go through the native library and every full-matrix
-     one through the walk kernel (ops/seqalign's TRACEBACK_CALLS: no Python
-     traceback);
+     of every run must go through the banded walk kernel (banded_cuda ==
+     banded_walks, native == 0) and every full-matrix one through the walk
+     kernel (ops/seqalign's TRACEBACK_CALLS: no Python traceback);
  10. K3, K4 and K5 timed against their plain versions at those runs' own
      shapes: K3 at the seeded run's largest chunk at widths 128 and 512, K4
      at the largest bucket launched, K5 at the exhaustive run's first call;
@@ -84,7 +96,7 @@ Phases (each prints a line; any failure raises and exits non-zero):
      sharded, by the Python driver + K1 and by the C++ driver over the
      /dev/shm ring (golden md5); (c) the seeded align of all 10,000 reads,
      reads sharded by index, rank 0 writing the GAF (golden md5, K3
-     launched on each rank, every traceback native), its wall beside
+     launched on each rank, every banded traceback on the card), its wall beside
      phase 9's; (d) evalGFA statistics with duplicate marking on the truth
      GAF, equal to the one-process run's bytes; (e) `python -m
      gfalign_torch search` with GFALIGN_TORCH_DISTRIBUTED=1 on the
@@ -119,9 +131,9 @@ each read's last non-PAD char (the kernels skip the rest).
 line), and `--host-ladder`, `--trace` and `--dryrun` phases 1, 2 and 12,
 13 or 14 alone (no result line either); `python3 chip_smoke.py --nw` stops after phase 4 (build, K1 and K2 against
 their plain versions: under a minute) and prints no result line;
-`python3 chip_smoke.py --sa` runs phases 1, 2, 8 and 8b only (build, K3-K5
-against their plain versions and at the synthesised phase-10 shapes, the
-walk: about two minutes), no result line either.
+`python3 chip_smoke.py --sa` runs phases 1, 2, 8, 8b and 8c only (build,
+K3-K5 against their plain versions and at the synthesised phase-10 shapes,
+the walk, the banded walk: a few minutes), no result line either.
 
 The line before the last is the kernel table as JSON, the last line
 {"ok": true, "device": {...}}.  Details also go to chiprun_out/chip_smoke.json.
@@ -210,6 +222,8 @@ KERNELS = {
                   replaces="gfalign_tpu/ops/seqalign_pallas.py:57 via :176"),
     "walk": dict(name="sa_walk (the exact full-matrix traceback)",
                  replaces="none (the JAX package walks on the host)"),
+    "bandtrace": dict(name="sa_bandtrace (the banded tracebacks of a wave)",
+                      replaces="none (the JAX package walks on the host)"),
 }
 
 
@@ -1141,6 +1155,135 @@ def phase_walk_ultra_long(rows=300_000, cols=600_000):
     return res
 
 
+# The banded walk's bound counts 8 int32 operations a band cell (rows x
+# width), as the walk's does (WALK_OPS_PER_CELL).
+BANDTRACE_OPS_PER_CELL = 8
+
+
+def phase_bandtrace():
+    """Phase 8c: the banded walk kernel (sa_bandtrace, through
+    seqalign_cuda.banded_walks_cuda) against the native host walk, at
+    clr.align's and ont_r10.align's walk shapes (see the module's
+    docstring), timed; the plain version on the first rows of the longest
+    walk, timed and scaled, its codes there against the kernel's, and its
+    walk of the first CLR walk against the kernel's.  Returns each shape's
+    readings and, under "faults", what differed: the largest difference of
+    score, qstart, pstart, matches and nm, the ops and the declines that
+    differ (against the host walk and the plain walk) and the codes that
+    differ (all 0, or the phase raises)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gfalign_torch.bench_seqalign import clr_band_walks, ultra_long_band_walks
+    from gfalign_torch.io import native
+    from gfalign_torch.ops import seqalign, seqalign_cuda
+
+    dev = torch.device("cuda")
+    sa = (seqalign.MATCH, seqalign.MISMATCH, seqalign.GAP, seqalign.PAD,
+          seqalign._BLOCK)
+    clr512 = clr_band_walks(144, 512, dev)
+    ul = {width: ultra_long_band_walks(width, dev) for width in (1024, 2048)}
+    shapes = {"clr w512 x1": clr512[:1], "clr w512 x16": clr512[:16],
+              "clr w512 x144": clr512,
+              "clr w1024 x16": clr_band_walks(16, 1024, dev, seed=16),
+              "ont_r10 w1024 x6": ul[1024], "ont_r10 w2048 x6": ul[2048],
+              "ont_r10 w2048 201.6 kb alone": ul[2048][:1]}
+    faults = dict(max_abs_err=0, ops_differ=0, declines_differ=0, walks=0)
+
+    def compare(got, want):
+        """Count where the kernel's walks `got` differ from `want`."""
+        for g, w in zip(got, want):
+            faults["walks"] += 1
+            if (g is None) != (w is None):
+                faults["declines_differ"] += 1
+            elif g is not None:
+                faults["max_abs_err"] = max(faults["max_abs_err"],
+                                            *(abs(a - b) for a, b in zip(g[:5], w[:5])))
+                faults["ops_differ"] += (sum(a != b for a, b in zip(g[5], w[5]))
+                                         + abs(len(g[5]) - len(w[5])))
+
+    out = {}
+    for name, walks in shapes.items():
+        got = seqalign_cuda.banded_walks_cuda(walks, dev)     # warm
+        walls = []
+        for _ in range(3):
+            before = seqalign_cuda.LAUNCHES["bandtrace"]
+            t0 = time.time()
+            seqalign_cuda.banded_walks_cuda(walks, dev)
+            walls.append(time.time() - t0)
+            launches = seqalign_cuda.LAUNCHES["bandtrace"] - before
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            seqalign_cuda.banded_walks_cuda(walks, dev)
+            torch.cuda.synchronize()
+        kernels = {re.search(r"bandtrace_\w+", e.key).group(0): e.device_time_total / 1e3
+                   for e in prof.key_averages() if "bandtrace_" in e.key}
+        # where the profiler shows no bandtrace kernel, the call's own device
+        # time (upload, kernels, copy back) by CUDA events stands in for them
+        events_ms = time_ms(lambda: seqalign_cuda.banded_walks_cuda(walks, dev),
+                            warmup=0, reps=3)
+        t0 = time.time()
+        want = [native.banded_local_traceback(*w, *sa) for w in walks]
+        host = time.time() - t0
+        compare(got, want)
+        cells = sum(w[2] * w[5] for w in walks)
+        res = dict(walks=len(walks), launches=launches,
+                   longest_rows=max(w[2] for w in walks), cells=cells,
+                   declined=sum(g is None for g in got),
+                   wall_ms=sorted(walls)[1] * 1e3, kernels_ms=kernels,
+                   events_ms=events_ms, ms=sum(kernels.values()) if kernels else events_ms,
+                   ms_by="profiler" if kernels else "cuda events", host_ms=host * 1e3,
+                   bound_ms=cells * BANDTRACE_OPS_PER_CELL / INT32_ALU_OPS_PER_S * 1e3,
+                   bound_by="operations")
+        out[name] = res
+        log(f"phase 8c bandtrace {name}: {res['walks']} walks ({res['declined']} "
+            f"declined) in {launches} launch(es), rows up to {res['longest_rows']}, "
+            f"{cells / 1e9:.3f} G band cells; kernels "
+            f"{res['ms']:.2f} ms by {res['ms_by']} "
+            f"({', '.join(f'{k} {v:.2f}' for k, v in kernels.items())}; the call by "
+            f"CUDA events {events_ms:.2f} ms), "
+            f"as the align mode calls it {res['wall_ms']:.2f} ms, host walks "
+            f"{res['host_ms']:.0f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({BANDTRACE_OPS_PER_CELL} ops a band cell)")
+    host_faults = dict(faults)
+    # the plain version on the longest walk's first rows, timed and scaled,
+    # and its codes on those rows against the kernel's
+    walk = ul[2048][0]
+    read, path, ei, ej, delta, width, _ = walk
+    cut = 1000
+    t0 = time.time()
+    _, plain = seqalign.band_codes_ref(torch.from_numpy(read[:cut].copy()),
+                                       torch.from_numpy(path[:ej].copy()), delta, width)
+    out["plain_ms"] = (time.time() - t0) * 1e3 * ei / cut
+    job = seqalign_cuda._BandJob(*walk, seqalign.band_end(len(read), len(path), ei, ej,
+                                                          delta, width),
+                                 *seqalign_cuda.bandtrace_layout(width))
+    _, codes, first = seqalign_cuda._launch_bandtrace(
+        seqalign_cuda._lib(), [job], dev, torch.cuda.current_stream(dev).cuda_stream)
+    got = seqalign_cuda.band_codes(codes, int(first[0]), cut, width)
+    faults["codes_differ"] = int((got != plain.numpy()[1:]).sum())
+    faults["codes_compared"] = got.size
+    del codes
+    # the plain walk of the first CLR walk against the kernel's
+    walks = shapes["clr w512 x1"]
+    compare(seqalign_cuda.banded_walks_cuda(walks, dev),
+            [seqalign.banded_walk_ref(*w) for w in walks])
+    plain_faults = {k: faults[k] - host_faults[k] for k in ("ops_differ", "declines_differ")}
+    log(f"phase 8c bandtrace plain version: {out['plain_ms']:.0f} ms at the "
+        f"201.6 kb walk (its first {cut} rows, scaled); its codes on those rows "
+        f"against the kernel's: {faults['codes_differ']} of {got.size} differ; "
+        f"its walk of clr w512 x1 against the kernel's: ops differ "
+        f"{plain_faults['ops_differ']}, declines differ {plain_faults['declines_differ']}")
+    log(f"phase 8c bandtrace against the host and plain walks: {faults['walks']} walks, "
+        f"largest difference of score, ends, matches and nm {faults['max_abs_err']}, "
+        f"{faults['ops_differ']} ops and {faults['declines_differ']} declines differ")
+    if (faults["max_abs_err"] or faults["ops_differ"] or faults["declines_differ"]
+            or faults["codes_differ"]):
+        raise RuntimeError(f"bandtrace: the kernel differs from the host walk or the "
+                           f"plain version: {faults}")
+    out["faults"] = faults
+    return out
+
+
 class AlignRecorder:
     """Wraps the align scorers' entry points for one run: keeps the inputs
     of the largest call of each kind (for phase 10) and CUDA events around
@@ -1231,17 +1374,25 @@ def run_align(name, runs, golden, workdir, tag="device", device=None):
     walks = profiling.since(walks)["counts"]
     if rc != 0:
         raise RuntimeError(f"align ({name}) exited {rc}: {err.getvalue()[-400:]}")
-    # banded walks native; full walks on the card (the exhaustive engine
-    # walks every placement in full)
+    # on the card banded walks on the banded walk kernel, in waves, and full
+    # walks on the walk kernel (the exhaustive engine walks every placement
+    # in full); on the CPU (the host ladder) banded walks native
     banded = walks.get("align.traceback.banded_walks", 0)
     full = walks.get("align.traceback.full_walks", 0)
-    if (tracebacks["python"] or tracebacks["native"] != banded
-            or tracebacks["cuda"] != launches["walk"]
-            or (name != "exhaustive" and tracebacks["cuda"] != full)
-            or tracebacks["native"] + tracebacks["cuda"] == 0):
-        raise RuntimeError(f"align ({name}) tracebacks {tracebacks}, walk launches "
-                           f"{launches['walk']}, banded {banded}, full {full}: banded "
-                           f"walks must be native and full ones on the card")
+    if device == "cpu":
+        wrong = (tracebacks["native"] != banded or tracebacks["cuda"]
+                 or tracebacks["banded_cuda"] or full or banded == 0)
+    else:
+        wrong = (tracebacks["native"] or tracebacks["banded_cuda"] != banded
+                 or (launches["bandtrace"] > 0) != (banded > 0)
+                 or tracebacks["cuda"] != launches["walk"]
+                 or (name != "exhaustive" and tracebacks["cuda"] != full)
+                 or tracebacks["banded_cuda"] + tracebacks["cuda"] == 0)
+    if tracebacks["python"] or wrong:
+        raise RuntimeError(f"align ({name}) tracebacks {tracebacks}, launches "
+                           f"{launches}, banded {banded}, full {full}: banded walks "
+                           f"must be on the banded walk kernel and full ones on "
+                           f"the walk kernel (native on the CPU)")
     if not buf.getvalue().startswith(f"Invoking: gfalign-tpu-align -p {preset} "):
         raise RuntimeError(f"align ({name}) did not echo its invocation")
     got = digest(out_gaf.read_bytes())
@@ -1616,8 +1767,10 @@ def rank_worker(spec_path):
         raise RuntimeError(f"rank {pid}: align exited {rc}")
     if launches["banded"] == 0:
         raise RuntimeError(f"rank {pid}: align launched no K3")
-    if tracebacks["python"] or not tracebacks["native"]:
-        raise RuntimeError(f"rank {pid}: align tracebacks {tracebacks}")
+    if (tracebacks["python"] or tracebacks["native"]
+            or not tracebacks["banded_cuda"] or not launches["bandtrace"]):
+        raise RuntimeError(f"rank {pid}: align tracebacks {tracebacks}, "
+                           f"launches {launches}")
     if pid == 0:                       # rank 0 wrote the gathered GAF
         got = digest(pathlib.Path(spec["align_out"]).read_bytes())
         if got != tuple(spec["align_golden"]):
@@ -1685,7 +1838,8 @@ def phase_distributed(workdir, wl, paths=None, single_align_s=None):
             f"{b[1]['wall_s']:.4f} s; (d) evalGFA {r['evalgfa']['wall_s']:.2f} s; "
             f"(c) align {c['wall_s']:.2f} s, seeding {ph['seeding']:.2f} s, scoring "
             f"{ph['scoring']:.2f} s, tracebacks {ph['traceback']:.2f} s "
-            f"({c['tracebacks']['native']} native), K3 launches {c['launches']['banded']}")
+            f"({c['tracebacks']['banded_cuda']} banded walks in "
+            f"{c['launches']['bandtrace']} launches), K3 launches {c['launches']['banded']}")
     single = f"{single_align_s:.2f} s" if single_align_s else "not run"
     log(f"phase 11 (c) seeded align, all 10,000 reads on {DIST_RANKS} ranks: GAF golden-equal "
         f"(rank 0 wrote it), slowest rank {max(r['align']['wall_s'] for r in ranks):.2f} s "
@@ -1736,9 +1890,9 @@ def main(only: str = "") -> int:
                           seqalign_ragged=phase_seqalign_ragged(gen),
                           seqalign_ultra_long=phase_seqalign_ultra_long(),
                           seqalign_synthetic=phase_seqalign_synthetic(),
-                          walk=phase_walk()),
+                          walk=phase_walk(), bandtrace=phase_bandtrace()),
                      "chip_smoke_sa.json")
-        log(f"phases 1, 2, 8 and 8b passed in {time.time() - t_start:.1f} s (--sa: "
+        log(f"phases 1, 2, 8, 8b and 8c passed in {time.time() - t_start:.1f} s (--sa: "
             f"the other phases were not run, so no result line is printed)")
         return 0
     # the phases that also run alone, after phases 1 and 2
@@ -1775,6 +1929,7 @@ def main(only: str = "") -> int:
         sa_ultra_long = phase_seqalign_ultra_long()
         sa_synthetic = phase_seqalign_synthetic()
         walk = phase_walk()
+        bandtrace = phase_bandtrace()
         align, recs = phase_align(workdir, wl)
         sa_main = phase_seqalign_main_shapes(recs)
         distributed = phase_distributed(workdir, wl, paths, align["seeded"]["seconds"])
@@ -1787,7 +1942,8 @@ def main(only: str = "") -> int:
                 "banded": align["seeded"]["launches"]["banded"],
                 "pairs": align["band_edge"]["launches"]["pairs"],
                 "cross": align["exhaustive"]["launches"]["cross"],
-                "walk": sum(run["launches"]["walk"] for run in align.values())}
+                "walk": sum(run["launches"]["walk"] for run in align.values()),
+                "bandtrace": align["seeded"]["launches"]["bandtrace"]}
     table = []
     for kind, res, source in (("packed", k1, "nw_path"), ("split", k2, "nw_path"),
                               ("banded", sa_main["banded_128"], "seqalign"),
@@ -1809,12 +1965,22 @@ def main(only: str = "") -> int:
                       plain_ms=clr_walk["plain_ms"],
                       bound_ms=clr_walk["bound_ms"], bound_by="operations",
                       host_ms=clr_walk["host_ms"], library_ms=None))
+    ont = bandtrace["ont_r10 w2048 201.6 kb alone"]
+    table.append(dict(KERNELS["bandtrace"], route="cuda",
+                      source="gfalign_torch/csrc/seqalign.cu",
+                      launches=launches["bandtrace"],
+                      max_abs_err=bandtrace["faults"]["max_abs_err"],
+                      ops_differ=bandtrace["faults"]["ops_differ"],
+                      declines_differ=bandtrace["faults"]["declines_differ"],
+                      codes_differ=bandtrace["faults"]["codes_differ"], ms=ont["ms"],
+                      plain_ms=bandtrace["plain_ms"], bound_ms=ont["bound_ms"],
+                      bound_by="operations", host_ms=ont["host_ms"], library_ms=None))
     details = dict(card=smi, device=name, build_s=build_s, sass=sass, k1_bench=k1_bench,
                    k2_check=k2_check, search=search, evalpath=evalpath,
                    filtered_search=filtered_search,
                    long_paths=long_paths, k1_main=k1, k2_main=k2, profile=profile,
                    seqalign_ragged=sa_ragged, seqalign_ultra_long=sa_ultra_long,
-                   seqalign_synthetic=sa_synthetic, walk=walk,
+                   seqalign_synthetic=sa_synthetic, walk=walk, bandtrace=bandtrace,
                    align=align, seqalign_main=sa_main, distributed=distributed,
                    host_ladder=host_ladder, trace=trace, dryrun=dryrun,
                    ops_per_cell=OPS_PER_CELL, seconds=time.time() - t_start)

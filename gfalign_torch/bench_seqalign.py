@@ -284,6 +284,140 @@ def walk_mode_patches(mode: str) -> dict:
     return {}
 
 
+# The banded walk (sa_bandtrace): small walks that reach each of its cases
+# (band_walk_case)
+BAND_WALK_CASES = ("random", "pad-masked", "masked-runs", "n-codes", "repeats",
+                   "homopolymers", "drift", "edge-walk", "mid-row-start", "path-start",
+                   "path-end", "path-pads", "expected-missed", "end-on-edge",
+                   "end-off-band", "row-0")
+
+
+def band_walk_case(name: str, width: int):
+    """(read, path, end_i, end_j, delta, width, expected) of a small banded
+    walk (BAND_WALK_CASES), int8 codes: a read mutated from a stretch of its
+    path, its diagonal a few off, ending at the pair's best cell in the
+    band by K3's plain version with that score expected, unless the case
+    names its end or its score.  'drift' is a deletion-biased read whose
+    end lies a few lanes off lane 0; 'edge-walk' an exact read with one
+    deletion whose walk steps onto lane 0, the second gate;
+    'long-deletion' (not in BAND_WALK_CASES: 2.7 kb) a walk that crosses
+    400 lanes of PAD in one row, for bands of 1,024 lanes and more;
+    'expected-missed' expects one more than the end's value; 'end-on-edge'
+    and 'end-off-band' end on lane width - 1 and off the band; 'path-start'
+    and 'path-end' put the band over either end of the path;
+    'masked-runs' masks the read's first 100 bases and 100 mid-read."""
+    rng = np.random.default_rng(sum(map(ord, name)) * 8192 + width)
+    flank = lambda n: rng.integers(0, 4, n).astype(np.int8)
+    n = int(rng.integers(150, 400))
+    core = flank(n)
+    read = _mutated_indels(rng, core, 0.04, 0.02, 0.02)
+    left = int(rng.integers(20, 120))
+    right = int(rng.integers(0, 60))
+    if name == "pad-masked":                 # an earlier placement's masks
+        read[15:40] = PAD
+        read[len(read) // 2:len(read) // 2 + 9] = PAD
+    elif name == "masked-runs":              # whole chunks of PAD rows
+        read[:100] = PAD
+        read[len(read) // 2 - 40:len(read) // 2 + 60] = PAD
+    elif name == "n-codes":
+        read[rng.random(len(read)) < 0.04] = 4
+    elif name == "repeats":                  # many equal moves
+        core = np.tile(np.array([2, 3], np.int8), n // 2)
+        read = _mutated_indels(rng, core, 0.03, 0.03, 0.03)
+    elif name == "homopolymers":             # gaps that can slide
+        core = np.repeat(flank(n // 4), rng.integers(1, 8, n // 4))
+        read = _mutated_indels(rng, core, 0.0, 0.04, 0.04)
+    elif name == "drift":
+        read = _mutated_indels(rng, core, 0.01, 0.0, 0.12)
+    elif name == "edge-walk":  # exact, one deletion: lane 0 above it, 1 below
+        read = np.delete(core, n // 2)
+    elif name == "long-deletion":  # 400 PAD mid-path that the read skips
+        read = _mutated_indels(rng, flank(2700), 0.002, 0.0, 0.0)
+        core = np.concatenate([read[:1350], np.full(400, PAD, np.int8),
+                               read[1350:]])
+        n = len(core)
+    elif name == "mid-row-start":            # a local start inside the band
+        read = np.concatenate([flank(50), read])
+        left += 50
+    elif name == "path-start":
+        left = 2
+    elif name == "path-end":
+        right = 0
+        read = np.concatenate([read, flank(40)])
+    path = np.concatenate([flank(left), core, flank(right)]).astype(np.int8)
+    if name == "path-pads":
+        path[left + n // 3:left + n // 3 + 5] = PAD
+    read = read.astype(np.int8)
+    delta = left + int(rng.integers(-4, 5))
+    if name == "drift":  # the end near lane 4, and the lanes fall upwards
+        delta = left + n - len(read) + width // 2 - 4
+    elif name == "edge-walk":
+        delta = left + width // 2
+    elif name == "long-deletion":        # the start on lane ~300
+        delta = left + width // 2 - 300
+    best, bi, bj, _ = seqalign._banded_forward(
+        torch.from_numpy(read[None]), torch.from_numpy(path[None]),
+        torch.tensor([delta], dtype=torch.int32), width=width)
+    v, ei, ej = int(best[0]), int(bi[0]), int(bj[0])
+    if name == "expected-missed":
+        v += 1
+    elif name == "end-on-edge":
+        ej = ei + delta - width // 2 + width - 1
+    elif name == "end-off-band":
+        ej = ei + delta + width
+    elif name == "row-0":
+        ei, ej, v = 0, max(0, delta - width // 2 + 3), 0
+    return read, path, ei, ej, delta, width, v
+
+
+def clr_band_walks(n: int, width: int, device, seed: int = 15):
+    """n banded walks of CLR-like pairs (clr_pair: reads of 10-30 kb at 87%
+    against paths 2 kb longer) in a band of `width` lanes around the
+    template's diagonal, each ending at K3's best cell on `device` with its
+    score expected: clr.align's walk shapes."""
+    rng = np.random.default_rng(seed)
+    pairs = [clr_pair(rng, int(lt), int(lt) + 2000)   # template at 1,000
+             for lt in rng.integers(10_000, 30_001, n)]
+    lr = max(len(r) for r, _ in pairs)
+    lp = max(len(p) for _, p in pairs)
+    reads = np.full((n, lr), PAD, np.int8)
+    paths = np.full((n, lp), PAD, np.int8)
+    for k, (read, path) in enumerate(pairs):
+        reads[k, :len(read)], paths[k, :len(path)] = read, path
+    deltas = np.full(n, 1000, np.int32)
+    best, bi, bj, _ = (x.cpu().numpy() for x in seqalign.banded_pair_scores(
+        torch.from_numpy(reads).to(device), torch.from_numpy(paths).to(device),
+        torch.from_numpy(deltas).to(device), width=width))
+    return [(read, path, int(bi[k]), int(bj[k]), 1000, width, int(best[k]))
+            for k, (read, path) in enumerate(pairs)]
+
+
+def ultra_long_band_walks(width: int, device):
+    """The banded walks of ultra_long_banded_inputs' pairs at `width`
+    (reads of 3-201.6 kb in a pool padded to 262,144, the longest twice,
+    once 700 diagonals off): each pair's read and path as int8 numpy
+    arrays, ending at K3's best cell on `device` with its score expected,
+    as the placement loop asks for them."""
+    arena, cum_off, base_ptr, plen, reads, ridx, pidx, deltas = \
+        ultra_long_banded_inputs()
+    best, bi, bj, _ = seqalign.banded_arena_scores(
+        *(x.to(device) for x in (arena, cum_off, base_ptr, plen, reads)),
+        ridx, pidx, deltas, width=width)
+    a, co, bp = arena.numpy(), cum_off.numpy(), base_ptr.numpy()
+    walks = []
+    for n in range(len(ridx)):
+        r, p = int(ridx[n]), int(pidx[n])
+        read = reads[r].numpy()
+        read = read[:int(np.flatnonzero(read != PAD)[-1]) + 1]
+        steps = co[p] < int(plen[p])
+        x = np.arange(int(plen[p]))
+        k = np.searchsorted(co[p][steps], x, side="right") - 1
+        path = a[bp[p][steps][k] + x]
+        walks.append((read, path, int(bi[n]), int(bj[n]), int(deltas[n]),
+                      width, int(best[n])))
+    return walks
+
+
 def synthetic_shapes(seed: int = 0):
     """The phase-10 shapes of chip_smoke.py, on the CPU: 'banded' (K3, the
     4,096 pairs of width 128; width 512 takes the first 3,910), 'pairs'

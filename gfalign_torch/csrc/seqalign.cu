@@ -1206,6 +1206,468 @@ walk_trace_kernel(const WalkWord* __restrict__ codes,
   }
 }
 
+// The banded walk (sa_bandtrace): the banded traceback of many (read, path)
+// pairs in one launch.  Replaces no TPU kernel: the JAX package walks on the
+// host (gfalign_tpu/ops/seqalign.py banded_traceback), as the port does on
+// the CPU (seq_banded_traceback in native/gfalign_host.cpp).  The placement
+// loop asks for a read's walks one at a time, since what a read's earlier
+// walks accepted decides its next; it gathers the next walk of every read
+// into a wave (engine/graph_align.placement_rounds), and a wave is one
+// launch.  Bit for bit seq_banded_traceback: K3's banded recurrence (H[i][u]
+// at j = i + delta - width/2 + u: the diagonal keeps its lane, 'up' comes
+// from lane u + 1 and is blocked at the last lane, the chain seeds at 0,
+// cells with j outside [1, end_j] are 0, a PAD on either side scores
+// BLOCKV) over rows 1..end_i, then the walk from (end_i, u_end) behind the
+// two parity gates: H[end_i][u_end] must equal the ladder's score, and no
+// cell of the walk may lie on lane 0 or lane width - 1.  A walk that fails
+// either is declined (the caller walks the full matrix instead).
+//
+// Bound: integer ALU operations, 8 a band cell for the recurrence and about
+// as many again for the move codes; the codes, 2 bits a cell, are a tenth of
+// that at 3.35 TB/s.  A walk's rows are a serial chain, so a wave takes at
+// least its longest walk's rows times a row's latency: the design keeps a
+// row short and a wave's walks in flight together.
+//   * bandtrace_fwd_kernel: a walk is a TEAM of G threads of L lanes each
+//     (ops/seqalign_cuda.bandtrace_layout: as many threads as cover the
+//     band, up to 128, of 4 lanes each or the fewest more, a power of two),
+//     K3's group kernel row for row: the strip in a ring in shared memory
+//     refilled every 32 rows, the chain a segmented max-plus scan of the
+//     team, across the warps of a team of 64 or 128 threads through shared
+//     memory (scan_carry; the teams of a block then share its two barriers
+//     a row).  A row's latency is about its thread's instructions, since a
+//     wave's few long walks leave each scheduler one warp to issue: a row
+//     of 16 lanes a thread took ~1,400 cycles, of 64 lanes ~4,500
+//     (PERF.md), so a band spreads over more threads and warps before it
+//     takes more lanes a thread.  Each cell's move, decided while its
+//     neighbours are still in registers, is 2 bits of the row's code words,
+//     as WalkCodes decides it: 0 stop (H <= 0, or no move fits), 1 diagonal
+//     (H == H[i-1][u] + sub, sub the match iff read == path < 4), 2 up (I,
+//     H == H[i-1][u+1] + gap), 3 left (D, H == H[i][u-1] + gap), the first
+//     that fits.  Rows whose band lies inside the path and has no dead lane
+//     skip the path mask.  A block is 128 threads of one (L, G); the
+//     launcher gives a block's teams walks of like length and starts the
+//     blocks of the longest walks first.  No H is kept: the walk reads only
+//     the codes, the two sequences and the end cell's value;
+//   * bandtrace_back_kernel, one warp a walk: the warp loads a stage of the
+//     walk's codes (up to BT_TRACE_WORDS words: whole rows of a band up to
+//     512 lanes, a window of 512 lanes around the walk of a wider one,
+//     with the read's and the path's chars) into shared memory, thread 0
+//     walks through it, and the warp loads the next stage, as
+//     walk_trace_kernel does.  The ops go out 2 bits each, last first.
+constexpr int BT_THREADS = 128;       // a block of bandtrace_fwd_kernel
+constexpr int BT_TABLE_WORDS = 16;    // int64 words of a walk in the table
+constexpr int BT_BLOCK_WORDS = 4;     // int32 words of a block in the table
+constexpr int BT_HEAD = 8;            // int32 words of a result before its ops
+constexpr int BT_TRACE_WORDS = 8192;  // code words a stage of the walk holds
+constexpr int BT_TRACE_ROWS = 512;    // rows a stage holds, at most
+// A band wider than BT_TRACE_SPAN words a row stages a window of that many
+// around the walk, BT_TRACE_WIN_ROWS rows at a time: the walk moves right
+// by at most a lane a row (I), so the window reaches that far right of it.
+constexpr int BT_TRACE_SPAN = 32;
+constexpr int BT_TRACE_WIN_ROWS = 128;
+constexpr int BT_MAX_WIDTH = 8192;
+// A walk's words in the table: chars offsets of its read (end_i chars) and
+// of its path slice (path positions lo .. end_j - 1), lo, end_i, end_j,
+// delta, width, its first code word, code words a row, its first result
+// word, the ladder's score, the end lane, and the ops its result holds.
+constexpr int BT_READ = 0, BT_PATH = 1, BT_LO = 2, BT_ROWS = 3, BT_PLEN = 4,
+              BT_DELTA = 5, BT_WIDTH = 6, BT_CODES = 7, BT_STRIDE = 8,
+              BT_RES = 9, BT_EXPECTED = 10, BT_UEND = 11, BT_CAP = 12;
+
+// Ring bytes of a team of `span` lanes: K3's (sa_banded_ring).
+__device__ __forceinline__ int bt_ring(int span) {
+  int rb = 64;
+  while (rb < (span + 36 + 31) / 32 * 32 + 4) rb *= 2;
+  return rb;
+}
+
+// The forward pass of the teams of one block: walks first .. first +
+// n_teams - 1 of the table, G threads of L lanes each.
+template <int L>
+__device__ __forceinline__ void bandtrace_team(
+    const int8_t* __restrict__ chars, const long long* __restrict__ table,
+    int first, int n_teams, int G, uint32_t* __restrict__ codes,
+    int32_t* __restrict__ res, uint32_t* ring_base, int* wtot, int* xch,
+    int* vote, int* block_rows) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool multi = G > 32;              // a team of several warps
+  const int t = tid % G;                  // thread in the team
+  const int grp = tid / G;                // team in the block
+  const int nw = multi ? G >> 5 : 1;      // warps of a team
+  const int tw = warp % nw;               // the warp in its team
+  const bool valid = grp < n_teams;       // a team past them runs idle
+  const long long* w =
+      table + (size_t)(first + (valid ? grp : 0)) * BT_TABLE_WORDS;
+  const int8_t* read = chars + w[BT_READ];
+  const int8_t* path = chars + w[BT_PATH];
+  const int lo = (int)w[BT_LO], plen = (int)w[BT_PLEN];
+  const int rows = valid ? (int)w[BT_ROWS] : 0;
+  const int delta = (int)w[BT_DELTA], width = (int)w[BT_WIDTH];
+  const int W2 = width / 2, u_end = (int)w[BT_UEND];
+  const int stride = (int)w[BT_STRIDE];
+  uint32_t* out = codes + w[BT_CODES];
+  int32_t* end_value = res + w[BT_RES] + 1;
+  // every team of a warp loops to the warp's longest, and teams of several
+  // warps to the block's (they share its barriers)
+  int wrows = rows;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    wrows = max(wrows, __shfl_xor_sync(FULL, wrows, d));
+  if (multi) {
+    if (tid == 0) *block_rows = 0;
+    __syncthreads();
+    if (lane == 0) atomicMax(block_rows, wrows);
+    __syncthreads();
+    wrows = *block_rows;
+  }
+  const int span = G * L;  // the team's lanes; those past width are dead
+  const int ring_bytes = bt_ring(span);
+  uint32_t* ring32 = ring_base + (size_t)grp * (ring_bytes / 4);
+  int8_t* ring = (int8_t*)ring32;
+  const int bmask = ring_bytes - 1, wmask = ring_bytes / 4 - 1;
+  auto sync = [&]() {
+    if (multi)
+      __syncthreads();
+    else
+      __syncwarp();
+  };
+  // strip position p (path position p + delta - W2) lives at ring[p & bmask]
+  auto fill = [&](int p0, int count) {
+    for (int q = t; q < count; q += G) {
+      const int x = p0 + q + delta - W2;
+      ring[(p0 + q) & bmask] = (x >= 0 && x < plen) ? path[x - lo] : (int8_t)PAD;
+    }
+  };
+  // a row i reads strip positions [i - 1, i + span + 3): before the chunk
+  // of rows (c0, c0 + 32] the ring holds [c0 + filled - ring_bytes,
+  // c0 + filled)
+  const int filled = (span + 36 + 31) / 32 * 32;
+  fill(0, filled);
+  sync();
+
+  const int u0 = t * L;
+  int h[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) h[k] = 0;
+  if (multi) {  // row 0 of the lanes that neighbouring warps exchange
+    if (lane == 0) xch[warp] = 0;
+    __syncthreads();
+  }
+  int r_next = rows > 0 ? read[0] : PAD;
+  // row i's codes: the thread's 2 L bits, L / 16 words (a half or a byte of
+  // one for L = 8 or 4), in lane order, little-endian
+  constexpr int CW = L >= 16 ? L / 16 : 1;
+  auto put = [&](int i, const uint32_t* cw) {
+    uint32_t* dst = out + (size_t)(i - 1) * stride;
+    if constexpr (L >= 16) {
+#pragma unroll
+      for (int q = 0; q < CW; ++q) dst[t * CW + q] = cw[q];
+    } else if constexpr (L == 8) {
+      ((uint16_t*)dst)[t] = (uint16_t)cw[0];
+    } else {
+      ((uint8_t*)dst)[t] = (uint8_t)cw[0];
+    }
+  };
+  auto row = [&](auto masked, int i) {
+    constexpr bool MASK = decltype(masked)::value;
+    const int r = r_next;
+    r_next = i < rows ? read[i] : PAD;  // the rows past a team's own are PAD
+    // this row's window strip[i-1+u0 .. +L), four chars per word
+    const int o = i - 1 + u0;
+    const int wi = o >> 2, sh = (o & 3) * 8;
+    uint32_t pk[L / 4];
+    uint32_t lo_word = ring32[wi & wmask];
+#pragma unroll
+    for (int q = 0; q < L / 4; ++q) {
+      const uint32_t hi = ring32[(wi + q + 1) & wmask];
+      pk[q] = __funnelshift_r(lo_word, hi, sh);
+      lo_word = hi;
+    }
+    // 'up' of the thread's last lane: the next thread's first lane (none
+    // for the team's last thread, whose last lane is dead or the band's
+    // last, blocked)
+    int upn;
+    if (multi) {
+      upn = __shfl_down_sync(FULL, h[0], 1);
+      if (lane == 31) upn = tw + 1 < nw ? xch[warp + 1] : NEG;
+    } else {
+      upn = __shfl_down_sync(FULL, h[0], 1, G);
+      if (t == G - 1) upn = NEG;
+    }
+    const int s_match = r == PAD ? BLOCKV : MATCH;
+    const int s_mis = r == PAD ? BLOCKV : MISMATCH;
+    const int rk = r < 4 ? r : 0xff;  // N and PAD match nothing
+    const int jb = i + delta - W2 + u0;  // j of the thread's first lane
+    auto inside = [&](int k) {
+      return (unsigned)(jb + k - 1) < (unsigned)plen && u0 + k < width;
+    };
+    int hv[L];
+    int run = NEG;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int p = (int)((pk[k >> 2] >> ((k & 3) * 8)) & 0xffu);
+      const int s = p == PAD ? BLOCKV : (p == rk ? s_match : s_mis);
+      const int up = k + 1 < L ? h[k + 1] : upn;
+      int c = __viaddmax_s32_relu(h[k], s, up + GAP);
+      if (MASK && !inside(k)) c = 0;
+      run = __viaddmax_s32(run, GAP, c);
+      hv[k] = run;
+    }
+    // carry into this thread: the chain's value at the team's previous
+    // thread's last lane, which is also that lane's H (the left neighbour
+    // of the thread's first lane)
+    int carry;
+    if (multi) {
+      carry = scan_carry(run, -GAP * L, NEG, lane, tw, nw, wtot + grp * nw);
+    } else {
+      int sc = run;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        if (d < G) {  // G is the block's
+          const int ov = __shfl_up_sync(FULL, sc, d, G);
+          if (t >= d) sc = max(sc, ov + GAP * L * d);
+        }
+      }
+      carry = __shfl_up_sync(FULL, sc, 1, G);
+      carry = t > 0 ? carry : NEG;
+    }
+    uint32_t cw[CW];
+#pragma unroll
+    for (int q = 0; q < CW; ++q) cw[q] = 0;
+    int left = carry;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      int hn = __viaddmax_s32(carry, GAP * (k + 1), hv[k]);
+      if (MASK && !inside(k)) hn = 0;
+      const int p = (int)((pk[k >> 2] >> ((k & 3) * 8)) & 0xffu);
+      const int up = k + 1 < L ? h[k + 1] : upn;
+      // the first move that fits in the walk's order
+      uint32_t code = hn == left + GAP ? 3u : 0u;
+      code = hn == up + GAP ? 2u : code;
+      code = hn == h[k] + (p == rk ? MATCH : MISMATCH) ? 1u : code;
+      cw[k >> 4] |= (hn > 0 ? code : 0u) << (2 * (k & 15));
+      left = hn;
+      hv[k] = hn;
+    }
+#pragma unroll
+    for (int k = 0; k < L; ++k) h[k] = hv[k];
+    if (i <= rows) {
+      put(i, cw);
+      if (i == rows) {
+#pragma unroll
+        for (int k = 0; k < L; ++k)
+          if (u0 + k == u_end) *end_value = h[k];
+      }
+    }
+    if (multi) {
+      if (lane == 0) xch[warp] = h[0];
+      __syncthreads();
+    }
+  };
+  for (int c0 = 0; c0 < wrows; c0 += RING_CHUNK) {
+    if (c0 > 0) {
+      sync();  // the previous chunk's reads are done
+      fill(filled + c0 - RING_CHUNK, RING_CHUNK);
+      sync();
+    }
+    const int c1 = min(c0 + RING_CHUNK, wrows);
+    const int last = min(c1, rows);
+    // A row of PAD read chars after a row of zeros is zeros (a PAD blocks
+    // the diagonal; up and left only decay), its moves all stop: a chunk
+    // whose rows up to the team's own last are PAD after a zero row (the
+    // masked stretches of a read that earlier rounds placed) writes stop
+    // codes and skips its rows.  Uniform over the warp, and over the block
+    // for teams of several warps.
+    bool zero = true;
+#pragma unroll
+    for (int k = 0; k < L; ++k) zero = zero && h[k] == 0;
+    for (int i = c0 + 1 + t; i <= last; i += G) zero = zero && read[i - 1] == PAD;
+    bool skip = !__any_sync(FULL, !zero);
+    if (multi) {
+      if (lane == 0) vote[warp] = skip;
+      __syncthreads();
+      for (int w = 0; w < BT_THREADS / 32; ++w) skip = skip && vote[w];
+    }
+    if (skip) {
+      const uint32_t none[CW] = {};
+      for (int i = c0 + 1; i <= last; ++i) put(i, none);
+      if (c0 < rows && rows <= c1) *end_value = 0;
+      r_next = c1 < rows ? read[c1] : PAD;
+      continue;
+    }
+    // the mask can change a value only where a lane is dead or off the
+    // path: every row of the chunk up to the team's own last within
+    // j in [1, end_j] skips it (warp-uniform: the warp's teams agree)
+    const bool plain = span == width &&
+                       (last <= c0 || (c0 + 1 + delta - W2 >= 1 &&
+                                       last + delta - W2 + width - 1 <= plen));
+    if (__any_sync(FULL, !plain)) {
+      for (int i = c0 + 1; i <= c1; ++i) row(std::true_type{}, i);
+    } else {
+      for (int i = c0 + 1; i <= c1; ++i) row(std::false_type{}, i);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BT_THREADS)
+bandtrace_fwd_kernel(const int8_t* __restrict__ chars,
+                     const long long* __restrict__ table,
+                     const int32_t* __restrict__ blocks,
+                     uint32_t* __restrict__ codes, int32_t* __restrict__ res) {
+  extern __shared__ int32_t dyn[];
+  __shared__ int wtot[MAX_WARPS], xch[MAX_WARPS], vote[MAX_WARPS], block_rows;
+  const int32_t* b = blocks + (size_t)BT_BLOCK_WORDS * blockIdx.x;
+  const int first = b[0], n_teams = b[1], lanes = b[2], G = b[3];
+  uint32_t* ring = (uint32_t*)dyn;
+  if (lanes == 4)
+    bandtrace_team<4>(chars, table, first, n_teams, G, codes, res, ring, wtot,
+                      xch, vote, &block_rows);
+  else if (lanes == 8)
+    bandtrace_team<8>(chars, table, first, n_teams, G, codes, res, ring, wtot,
+                      xch, vote, &block_rows);
+  else if (lanes == 16)
+    bandtrace_team<16>(chars, table, first, n_teams, G, codes, res, ring, wtot,
+                       xch, vote, &block_rows);
+  else if (lanes == 32)
+    bandtrace_team<32>(chars, table, first, n_teams, G, codes, res, ring, wtot,
+                       xch, vote, &block_rows);
+  else
+    bandtrace_team<64>(chars, table, first, n_teams, G, codes, res, ring, wtot,
+                       xch, vote, &block_rows);
+}
+
+// The walk of table row blockIdx.x over its codes: result words (BT_HEAD)
+// how it ended (1 done, 2 declined by a gate, 3 out of op room), the end
+// cell's value, qstart, pstart, matches, nm, the op count n; then the ops,
+// 2 bits each ('=' 0, 'X' 1, 'I' 2, 'D' 3), op m in bits 2 (m % 16) of
+// word m / 16, the last op of the alignment first.
+__global__ void __launch_bounds__(32)
+bandtrace_back_kernel(const int8_t* __restrict__ chars,
+                      const long long* __restrict__ table,
+                      const uint32_t* __restrict__ codes,
+                      int32_t* __restrict__ res) {
+  extern __shared__ int32_t dyn[];
+  __shared__ int st_i, st_u, st_status;
+  const long long* w = table + (size_t)BT_TABLE_WORDS * blockIdx.x;
+  const int8_t* read = chars + w[BT_READ];
+  const int8_t* path = chars + w[BT_PATH];
+  const int lo = (int)w[BT_LO], plen = (int)w[BT_PLEN];
+  const int rows = (int)w[BT_ROWS], delta = (int)w[BT_DELTA];
+  const int width = (int)w[BT_WIDTH], W2 = width / 2;
+  const int stride = (int)w[BT_STRIDE], cap = (int)w[BT_CAP];
+  const uint32_t* cw = codes + w[BT_CODES];
+  int32_t* out = res + w[BT_RES];
+  uint32_t* ops = (uint32_t*)(out + BT_HEAD);
+  uint32_t* tile = (uint32_t*)dyn;
+  int8_t* tread = (int8_t*)(tile + BT_TRACE_WORDS);
+  int8_t* tpath = tread + BT_TRACE_ROWS;
+  const bool window = stride > BT_TRACE_SPAN;
+  const int trows = window ? BT_TRACE_WIN_ROWS
+                           : min(BT_TRACE_ROWS, BT_TRACE_WORDS / stride);
+  const int t = threadIdx.x;
+  int n = 0, matches = 0, nm = 0;  // thread 0's
+  uint32_t word = 0;
+  if (t == 0) {
+    if (rows == 0) out[1] = 0;  // no forward row: H[0][*] = 0
+    st_i = rows;
+    st_u = (int)w[BT_UEND];
+    st_status = out[1] == (int)w[BT_EXPECTED] ? -1 : 2;  // the first gate
+  }
+  __syncthreads();
+  while (st_status < 0) {
+    // the stage: rows i_lo..i by words g_lo..g_lo + ng - 1 of their codes
+    // (lanes 16 g_lo ..), their read chars and the path chars of those
+    // lanes (path index i_lo - 1 + delta - W2 + 16 g_lo + q at tpath[q])
+    const int i = st_i;
+    const int i_lo = max(1, i - trows + 1), nr = i - i_lo + 1;
+    const int g_lo = window ? max(0, min(stride - 1, (st_u + trows) >> 4) -
+                                         BT_TRACE_SPAN + 1)
+                            : 0;
+    const int ng = window ? BT_TRACE_SPAN : stride;
+    const long long x0 = (long long)i_lo - 1 + delta - W2 + 16 * g_lo;
+    // ng is a power of two: a thread loads word t % ng of every 32 / ng-th
+    // row, eight loads in flight before their stores
+    const uint32_t* src = cw + (size_t)(i_lo - 1) * stride + g_lo + t % ng;
+    const int step = ng < 32 ? 32 / ng : 1;
+    for (int r0 = t / ng; r0 < nr; r0 += 8 * step) {
+      uint32_t v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (r0 + k * step < nr) v[k] = __ldcg(src + (size_t)(r0 + k * step) * stride);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (r0 + k * step < nr) tile[(r0 + k * step) * ng + t % ng] = v[k];
+    }
+    for (int q = t; q < nr; q += 32) tread[q] = read[i_lo - 1 + q];
+    for (int q = t; q < nr + 16 * ng; q += 32) {
+      const long long x = x0 + q;
+      tpath[q] = (x >= 0 && x < plen) ? path[x - lo] : (int8_t)PAD;
+    }
+    __syncthreads();
+    if (t == 0) {
+      int ii = i, u = st_u, status = -1;
+      for (;;) {
+        if (u <= 0 || u >= width - 1) {
+          status = 2;  // the walk touched the band's edge
+          break;
+        }
+        if (ii == 0) {
+          status = 1;
+          break;
+        }
+        if (ii < i_lo || (u >> 4) < g_lo || (u >> 4) >= g_lo + ng)
+          break;  // out of the stage
+        const uint32_t code =
+            (tile[(ii - i_lo) * ng + (u >> 4) - g_lo] >> (2 * (u & 15))) & 3u;
+        if (code == 0u) {
+          status = 1;  // a local start
+          break;
+        }
+        if (n >= cap) {
+          status = 3;
+          break;
+        }
+        uint32_t op;
+        if (code == 1u) {
+          const int rc = tread[ii - i_lo];
+          const bool eq = rc == tpath[ii - i_lo + u - 16 * g_lo] && rc < 4;
+          op = eq ? 0u : 1u;
+          matches += eq;
+          nm += !eq;
+          --ii;
+        } else if (code == 2u) {
+          op = 2u;
+          ++nm;
+          --ii;
+          ++u;
+        } else {
+          op = 3u;
+          ++nm;
+          --u;
+        }
+        word |= op << (2 * (n & 15));
+        if ((++n & 15) == 0) {
+          ops[(n >> 4) - 1] = word;
+          word = 0;
+        }
+      }
+      st_i = ii;
+      st_u = u;
+      st_status = status;
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    if (n & 15) ops[n >> 4] = word;
+    out[0] = st_status;
+    out[2] = st_i;
+    out[3] = max(0, st_i + delta - W2 + st_u);
+    out[4] = matches;
+    out[5] = nm;
+    out[6] = n;
+  }
+}
+
 int bit_length(long long x) {
   int k = 0;
   while (x >> k) ++k;
@@ -1566,4 +2028,52 @@ extern "C" int sa_walk_trace(const void* codes, const void* tiles, int n_tiles,
     return (int)cudaErrorInvalidValue;
   return walk_trace(codes, tiles, n_tiles, 0, 0, read, path, out, cap,
                     start_i, start_j, cont, (cudaStream_t)stream);
+}
+
+// The banded walk's layout constants, which ops/seqalign_cuda.py checks its
+// own against: int64 words of a walk in the table, int32 words of a block
+// in the table, int32 words of a result before its ops.
+extern "C" int sa_bandtrace_table_words() { return BT_TABLE_WORDS; }
+extern "C" int sa_bandtrace_block_words() { return BT_BLOCK_WORDS; }
+extern "C" int sa_bandtrace_head() { return BT_HEAD; }
+
+// The banded walks of one launch: n_walks rows of table (BT_TABLE_WORDS
+// int64 each, offsets into chars, codes and res as bandtrace_team reads
+// them), n_blocks rows of blocks (BT_BLOCK_WORDS int32 each: first walk,
+// teams, lanes L in {16, 32, 64}, team threads G, a power of two up to 32
+// or 128), every walk in exactly one block's teams; codes holds each walk's
+// end_i rows of `stride` words, res each walk's BT_HEAD words and its ops
+// (bandtrace_back_kernel); max_width bounds every walk's width.  All on one
+// device.  Launches the forward pass and the walks on `stream`, and returns
+// the first launch error.
+extern "C" int sa_bandtrace(const void* chars, const void* table, int n_walks,
+                            const void* blocks, int n_blocks, void* codes,
+                            void* res, int max_width, void* stream) {
+  if (n_walks <= 0 || n_blocks <= 0 || max_width < 4 ||
+      max_width > BT_MAX_WIDTH || chars == nullptr || table == nullptr ||
+      blocks == nullptr || codes == nullptr || res == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  size_t ring_smem = 0;  // the most any layout's teams of a block hold
+  for (int span = 16; span <= BT_MAX_WIDTH; span *= 2) {
+    int rb = 64;
+    while (rb < (span + 36 + 31) / 32 * 32 + 4) rb *= 2;
+    // a team of span / 4 threads at most (4 lanes a thread)
+    const int teams = span < 4 * BT_THREADS ? BT_THREADS / (span / 4) : 1;
+    if ((size_t)teams * rb > ring_smem) ring_smem = (size_t)teams * rb;
+  }
+  int err = prepare(bandtrace_fwd_kernel, ring_smem);
+  if (err) return err;
+  bandtrace_fwd_kernel<<<n_blocks, BT_THREADS, ring_smem, st>>>(
+      (const int8_t*)chars, (const long long*)table, (const int32_t*)blocks,
+      (uint32_t*)codes, (int32_t*)res);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const size_t trace_smem = (size_t)BT_TRACE_WORDS * sizeof(uint32_t) +
+                            2 * BT_TRACE_ROWS + 16 * BT_TRACE_SPAN;
+  if ((err = prepare(bandtrace_back_kernel, trace_smem))) return err;
+  bandtrace_back_kernel<<<n_walks, 32, trace_smem, st>>>(
+      (const int8_t*)chars, (const long long*)table, (const uint32_t*)codes,
+      (int32_t*)res);
+  return (int)cudaGetLastError();
 }

@@ -18,8 +18,9 @@ Pipeline:
      local-alignment kernel (ops/seqalign.py);
   3. select placements per read greedily by score over disjoint query
      regions (supplementary split, e.g. random1's rd1 -> ctg2 + ctg1);
-  4. traceback only selected placements on host, trim the path to the
-     minimal covering subpath, and emit GAF.
+  4. traceback only selected placements, in waves of one walk a read (on
+     CUDA a wave's banded walks are one kernel launch), trim the path to
+     the minimal covering subpath, and emit GAF.
 
 Records are emitted in read input order; a read's placements in descending
 score order ('best first', as the fixtures show for split reads).
@@ -1113,6 +1114,54 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
     # Rounds 2-4 used to re-score every candidate of still-active reads.
     dead_pairs: set = set()
 
+    def place(r: int, entries):
+        """Read r's placements from its scored entries, best first: a
+        generator that yields each banded walk it needs, (key, end row, end
+        column, diagonal, band width, ladder score), is sent the walk's
+        Placement (None: declined, so the exact walk runs) and returns
+        whether it placed anything."""
+        placed = False
+        rcodes = work[r]
+        for v, bi, bj, banded, key in entries:
+            if v < min_score:
+                break
+            path = path_cache[key]
+            if _reject_ending_inside(graph, path, v, bi, bj,
+                                     accepted[r], all_hits[r]):
+                continue
+            pl = None
+            # banded traceback (O(Lr x band)) where the scorer banded the
+            # pair (banded: its band width, 0 = full DP); parity-gated —
+            # None falls through to the exact full-matrix walk
+            delta = cand_deltas.get((r, key)) if banded else None
+            if delta is not None:
+                pl = yield key, bi, bj, delta, banded, v
+                count("align.traceback.banded_walks")
+                if pl is None:
+                    count("align.traceback.declined")
+            if pl is None:
+                # the ladder's score v bounds the walk's columns
+                with span("align.traceback"), span("align.traceback.full"):
+                    pl = seqalign.traceback(rcodes, codes_of(key), bi, bj,
+                                            device, score=v)
+                count("align.traceback.full_walks")
+            if pl.score < min_score:
+                continue
+            shadowed = [h for (a, b), h in zip(accepted[r], all_hits[r])
+                        if not (pl.qend <= a or pl.qstart >= b)]
+            if shadowed:
+                _note_competitor(graph, path, pl, shadowed)
+                continue
+            path_str, plen, ps, pe = _trim_to_subpath(
+                graph, path, pl.pstart, pl.pend)
+            accepted[r].append((pl.qstart, pl.qend))
+            blocklen = sum(x for x, _ in pl.cigar)
+            all_hits[r].append(GafHit(pl.score, pl.qstart, pl.qend,
+                                      path_str, plen, ps, pe, pl.matches,
+                                      pl.nm, blocklen, _cigar_str(pl.cigar)))
+            placed = True
+        return placed
+
     def placement_rounds(active: List[int]) -> None:
       # Two-wave scoring with chain-ranked top-k: each read's first wave
       # scores only its CHAIN_TOP_K best-supported candidates (ties at the
@@ -1155,54 +1204,36 @@ def _align_seeded(graph: Graph, reads, params: AlignParams, device, engine: str)
             if v < min_score:
                 dead_pairs.add((r, key))
             by_read[r].append((v, bi, bj, banded, key))
+        # Walks in waves: a read's entries run in order, since what its
+        # earlier walks accepted decides its next (_reject_ending_inside,
+        # the shadowing test), so each read is a generator (place) that
+        # stops at every banded walk it needs; a wave gathers the next walk
+        # of every read and walks them in one call (on CUDA one kernel
+        # launch).  Walk inputs do not depend on the order across reads
+        # (work[r] is masked only after r's own entries), so every read
+        # makes the walks and decisions of a read-by-read loop.
+        walkers = {r: place(r, sorted(by_read[r], key=lambda e: -e[0]))
+                   for r in active}
+        placed_reads: Dict[int, bool] = {}
+        replies = {r: None for r in active}
+        while replies:
+            wave = {}
+            for r, pl in replies.items():
+                try:
+                    wave[r] = walkers[r].send(pl)
+                except StopIteration as done:
+                    placed_reads[r] = done.value
+            if not wave:
+                break
+            with span("align.traceback"), span("align.traceback.banded"):
+                got = seqalign.banded_tracebacks(
+                    [(work[r], codes_of(key), *rest)
+                     for r, (key, *rest) in wave.items()], device)
+            replies = dict(zip(wave, got))
         next_active = []
         for r in active:
-            entries = sorted(by_read[r], key=lambda e: -e[0])
-            placed = False
-            rcodes = work[r]
-            qlen = len(rcodes)
-            for v, bi, bj, banded, key in entries:
-                if v < min_score:
-                    break
-                path = path_cache[key]
-                if _reject_ending_inside(graph, path, v, bi, bj,
-                                         accepted[r], all_hits[r]):
-                    continue
-                pl = None
-                with span("align.traceback"):
-                    if banded:  # band width used by the scorer (0 = full DP)
-                        # banded traceback (O(Lr x band)); parity-gated —
-                        # None falls through to the exact full-matrix walk
-                        delta = cand_deltas.get((r, key))
-                        if delta is not None:
-                            with span("align.traceback.banded"):
-                                pl = seqalign.banded_traceback(
-                                    rcodes, codes_of(key), bi, bj, delta,
-                                    banded, v)
-                            count("align.traceback.banded_walks")
-                            if pl is None:
-                                count("align.traceback.declined")
-                    if pl is None:
-                        # the ladder's score v bounds the walk's columns
-                        with span("align.traceback.full"):
-                            pl = seqalign.traceback(rcodes, codes_of(key),
-                                                    bi, bj, device, score=v)
-                        count("align.traceback.full_walks")
-                if pl.score < min_score:
-                    continue
-                shadowed = [h for (a, b), h in zip(accepted[r], all_hits[r])
-                            if not (pl.qend <= a or pl.qstart >= b)]
-                if shadowed:
-                    _note_competitor(graph, path, pl, shadowed)
-                    continue
-                path_str, plen, ps, pe = _trim_to_subpath(
-                    graph, path, pl.pstart, pl.pend)
-                accepted[r].append((pl.qstart, pl.qend))
-                blocklen = sum(x for x, _ in pl.cigar)
-                all_hits[r].append(GafHit(pl.score, pl.qstart, pl.qend,
-                                          path_str, plen, ps, pe, pl.matches,
-                                          pl.nm, blocklen, _cigar_str(pl.cigar)))
-                placed = True
+            placed = placed_reads[r]
+            qlen = len(work[r])
             if placed:
                 for a, b in accepted[r]:
                     work[r][a:b] = seqalign.PAD

@@ -12,11 +12,13 @@ Device/host split:
     the per-row horizontal dependency is an associative max-plus decay
     scan, so each row is elementwise work + one cummax;
   * only the selected placements (a handful per read) are tracebacked, by
-    recomputing the single pair's DP: banded walks on the host; the exact
-    full-matrix walk on the device of the run (on CUDA the walk-code
-    kernel, `full_walk`; on the CPU the native walk), in bounded memory
-    (row blocks) and, where the caller has the ladder's score, over the
-    columns that score leaves possible (`walk_window`).
+    recomputing the single pair's DP on the device of the run: the banded
+    walks of a placement wave together (`banded_tracebacks`: on CUDA one
+    banded-walk kernel launch, on the CPU the native walk a pair); the
+    exact full-matrix walk (on CUDA the walk-code kernel, `full_walk`; on
+    the CPU the native walk), in bounded memory (row blocks) and, where the
+    caller has the ladder's score, over the columns that score leaves
+    possible (`walk_window`).
 
 Scoring: match +1, mismatch -2, gap -3 (linear).
 """
@@ -50,11 +52,12 @@ PAD = 5       # padding sentinel; code 4 = N (aligns as mismatch)
 _BLOCK = -1000  # padding must never extend an alignment
 _BIG = 1 << 30
 
-# Tracebacks by route: the native C++ walks, the numpy oracles below or
-# the walk-code kernel on CUDA (the registry's counters
+# Tracebacks by route: the native C++ walks, the plain versions below, the
+# walk-code kernel on CUDA (full walks) or the banded-walk kernel on CUDA
+# (banded_cuda: one a banded walk; the registry's counters
 # align.traceback.<route>).
 TRACEBACK_CALLS = profiling.view(profiling.COUNTS, "align.traceback.",
-                                 ("native", "python", "cuda"))
+                                 ("native", "python", "cuda", "banded_cuda"))
 
 # Plain-version working set: local_forward_ref keeps its (R, P, Lp + 1) rows
 # in read chunks of at most this many elements.
@@ -578,6 +581,113 @@ def _walk_route(read: np.ndarray, path: np.ndarray, device) -> Placement:
     return _traceback_py(read, path, end_i, end_j)
 
 
+def band_end(lr: int, lp: int, end_i: int, end_j: int, delta: int,
+             width: int):
+    """The lane of (end_i, end_j) in the band of `width` lanes around
+    diagonal delta, for a read of lr and a path of lp chars, or None where
+    the walk is declined before any work: the cell lies outside the matrix
+    or on or off the band's edge, or the band is under 4 lanes."""
+    if not (0 <= end_i <= lr and 0 <= end_j <= lp) or width < 4:
+        return None
+    u_end = end_j - end_i - delta + width // 2
+    return u_end if 0 < u_end < width - 1 else None
+
+
+def band_codes_ref(read_codes: torch.Tensor, path_codes: torch.Tensor,
+                   delta: int, width: int):
+    """Plain version of the banded walk's forward pass (CPU tensors): K3's
+    banded recurrence over read_codes (rows,) against path_codes (cols,),
+    H[i][u] at j = i + delta - width//2 + u (the diagonal keeps its lane,
+    'up' from lane u + 1, blocked at the last lane, cells with j outside
+    [1, cols] 0, a PAD on either side _BLOCK), and for every cell the
+    walk's move there, the first that fits of 1 diagonal (H ==
+    H[i-1][u] + sub, sub the match iff read == path < 4, no PAD case),
+    2 up (H == H[i-1][u+1] + GAP), 3 left (H == H[i][u-1] + GAP); 0 stop
+    (H <= 0, or none fits).  Returns (H[rows] (width,), codes
+    (rows + 1, width) uint8, row 0 stop)."""
+    r = read_codes.to(torch.int32)
+    p = path_codes.to(torch.int32)
+    rows, cols = r.numel(), p.numel()
+    u = torch.arange(width, dtype=torch.int32)
+    decay = -GAP * u
+    block = torch.full((1,), _BLOCK, dtype=torch.int32)
+    none = torch.full((1,), -_BIG, dtype=torch.int32)   # no left of lane 0
+    codes = torch.zeros((rows + 1, width), dtype=torch.uint8)
+    prev = torch.zeros((width,), dtype=torch.int32)
+    for i in range(1, rows + 1):
+        j = i + delta - width // 2 + u
+        in_path = (j >= 1) & (j <= cols)
+        pc = torch.full((width,), PAD, dtype=torch.int32)
+        pc[in_path] = p[j[in_path] - 1]
+        rc = int(r[i - 1])
+        eq = (pc == rc) & (rc < 4)
+        sub = torch.where((pc == PAD) | (rc == PAD), _BLOCK,
+                          torch.where(eq, MATCH, MISMATCH))
+        up = torch.cat([prev[1:], block])
+        c = torch.clamp(torch.maximum(prev + sub, up + GAP), min=0)
+        c = torch.where(in_path, c, 0)
+        row = torch.where(in_path, torch.cummax(c + decay, 0).values - decay, 0)
+        left = torch.cat([none, row[:-1]])
+        code = torch.where(row == left + GAP, 3, 0)
+        code = torch.where(row == up + GAP, 2, code)
+        code = torch.where(row == prev + torch.where(eq, MATCH, MISMATCH), 1, code)
+        codes[i] = torch.where(row > 0, code, 0).to(torch.uint8)
+        prev = row
+    return prev, codes
+
+
+def _band_walk(codes: np.ndarray, read: np.ndarray, path: np.ndarray,
+               end_i: int, u_end: int, delta: int, width: int):
+    """The walk over band codes (band_codes_ref's) from (end_i, u_end):
+    (qstart, pstart, matches, nm, ops), or None where it touches lane 0 or
+    lane width - 1."""
+    i, u, w2 = end_i, u_end, width // 2
+    ops: List[str] = []
+    matches = nm = 0
+    while True:
+        if u <= 0 or u >= width - 1:
+            return None
+        move = codes[i, u]   # row 0 stops
+        if move == 1:
+            rc = read[i - 1]
+            eq = rc == path[i - 1 + delta - w2 + u] and rc < 4
+            ops.append("=" if eq else "X")
+            matches += int(eq)
+            nm += int(not eq)
+            i -= 1
+        elif move == 2:
+            ops.append("I")
+            nm += 1
+            i -= 1
+            u += 1
+        elif move == 3:
+            ops.append("D")
+            nm += 1
+            u -= 1
+        else:  # a local start, or row 0
+            break
+    ops.reverse()
+    return i, max(0, i + delta - w2 + u), matches, nm, "".join(ops)
+
+
+def banded_walk_ref(read: np.ndarray, path: np.ndarray, end_i: int,
+                    end_j: int, delta: int, width: int, expected: int):
+    """Plain version of the banded walk (band_codes_ref and its walk), with
+    the parity gates: (score, qstart, pstart, matches, nm, ops), or None
+    where the end lies off the band or a gate declines."""
+    u_end = band_end(len(read), len(path), end_i, end_j, delta, width)
+    if u_end is None:
+        return None
+    last, codes = band_codes_ref(torch.from_numpy(np.asarray(read[:end_i])),
+                                 torch.from_numpy(np.asarray(path[:end_j])),
+                                 delta, width)
+    score = int(last[u_end])
+    if score != expected:
+        return None
+    walk = _band_walk(codes.numpy(), read, path, end_i, u_end, delta, width)
+    return None if walk is None else (score, *walk)
+
+
 def banded_traceback(read: np.ndarray, path: np.ndarray,
                      end_i: int, end_j: int, delta: int, width: int,
                      expected: int):
@@ -591,8 +701,8 @@ def banded_traceback(read: np.ndarray, path: np.ndarray,
     lane.  Returns None when a gate fails (or coordinates are off-band) --
     the caller falls back to the exact full-matrix traceback().  The
     exhaustive align mode never uses this path.  Runs the native C++ walk
-    (io/native.banded_local_traceback); `_banded_traceback_py` is its
-    oracle, taken when `native.available()` is false."""
+    (io/native.banded_local_traceback); the plain version, banded_walk_ref,
+    is its oracle, taken when `native.available()` is false."""
     from ..io import native
 
     if native.available():
@@ -602,8 +712,11 @@ def banded_traceback(read: np.ndarray, path: np.ndarray,
                                             GAP, PAD, _BLOCK)
     else:
         profiling.count("align.traceback.python")
-        res = _banded_traceback_py(read, path, end_i, end_j, delta, width,
-                                   expected)
+        res = banded_walk_ref(read, path, end_i, end_j, delta, width, expected)
+    return _banded_placement(res, end_i, end_j)
+
+
+def _banded_placement(res, end_i: int, end_j: int):
     if res is None:
         return None
     score, qstart, pstart, matches, nm, ops = res
@@ -611,72 +724,19 @@ def banded_traceback(read: np.ndarray, path: np.ndarray,
                      _runs(ops), matches, nm)
 
 
-def _banded_traceback_py(read: np.ndarray, path: np.ndarray,
-                         end_i: int, end_j: int, delta: int, width: int,
-                         expected: int):
-    """Banded DP recomputation and walk with the parity gates (None = a
-    gate failed)."""
-    lr, lp = len(read), len(path)
-    if end_i < 0 or end_j < 0 or end_i > lr or end_j > lp or width < 4:
-        return None
-    w2 = width // 2
-    u_end = end_j - end_i - delta + w2
-    if u_end <= 0 or u_end >= width - 1:
-        return None
-    H = np.zeros((end_i + 1, width), np.int32)
-    uidx = np.arange(width)
-    decay = -GAP * uidx.astype(np.int32)
-    for i in range(1, end_i + 1):
-        j_of_u = i + delta - w2 + uidx
-        in_path = (j_of_u >= 1) & (j_of_u <= lp)
-        pc = path[np.clip(j_of_u - 1, 0, lp - 1)]
-        rc = read[i - 1]
-        sub = np.where((pc == PAD) | (rc == PAD), _BLOCK,
-                       np.where((pc < 4) & (rc < 4) & (pc == rc),
-                                MATCH, MISMATCH))
-        prev = H[i - 1]
-        up = np.concatenate([prev[1:], [_BLOCK]])
-        c = np.maximum(0, np.maximum(prev + sub, up + GAP))
-        c = np.where(in_path, c, 0)
-        row = np.maximum.accumulate(c + decay) - decay
-        H[i] = np.where(in_path, row, 0)
-    i, u = end_i, u_end
-    if int(H[i, u]) != expected:
-        return None
-    score = int(H[i, u])
-    ops: List[str] = []
-    matches = 0
-    nm = 0
-    while i > 0 and H[i, u] > 0:
-        if u <= 0 or u >= width - 1:
-            return None
-        j = i + delta - w2 + u
-        if j <= 0:
-            break
-        sub = MATCH if (read[i - 1] == path[j - 1] and read[i - 1] < 4) else MISMATCH
-        if H[i, u] == H[i - 1, u] + sub:
-            ops.append("=" if sub == MATCH else "X")
-            if sub == MATCH:
-                matches += 1
-            else:
-                nm += 1
-            i -= 1
-        elif H[i, u] == H[i - 1, u + 1] + GAP:
-            ops.append("I")
-            nm += 1
-            i -= 1
-            u += 1
-        elif H[i, u] == H[i, u - 1] + GAP:
-            ops.append("D")
-            nm += 1
-            u -= 1
-        else:
-            break
-    if u <= 0 or u >= width - 1:
-        return None
-    ops.reverse()
-    j = i + delta - w2 + u
-    return score, i, max(0, j), matches, nm, "".join(ops)
+def banded_tracebacks(walks, device="cpu") -> list:
+    """banded_traceback of every walk of `walks` (its arguments each), on
+    the device of the run: on CUDA the banded-walk kernel takes them all
+    (ops/seqalign_cuda.banded_walks_cuda: one launch for a wave whose band
+    codes fit its budget), elsewhere banded_traceback walks them one by
+    one.  A Placement, or None where the walk declined, a walk."""
+    if torch.device(device).type != "cuda":
+        return [banded_traceback(*walk) for walk in walks]
+    from . import seqalign_cuda
+
+    profiling.count("align.traceback.banded_cuda", len(walks))
+    return [_banded_placement(res, walk[2], walk[3]) for res, walk in
+            zip(seqalign_cuda.banded_walks_cuda(walks, device), walks)]
 
 
 def _traceback_py(read: np.ndarray, path: np.ndarray,

@@ -7,15 +7,17 @@ K4 (`sa_pairs_fwd`, read i against path i) and K5 (`sa_local_fwd`, every
 read against every path) replace `_kernel_factory`.  The walk (`sa_walk`:
 the walk codes of one pair's rectangle, then the walk over them; for a
 large rectangle `sa_walk_rows`, `sa_walk_tiles` and `sa_walk_trace`, the
-same walk in row blocks) replaces no TPU kernel: the JAX package walks on
-the host.  The wrappers check
+same walk in row blocks) and the banded walk (`sa_bandtrace`: the banded
+tracebacks of a wave of pairs, their band's move codes and then each walk
+over them) replace no TPU kernel: the JAX package walks on the host.  The
+wrappers check
 device, dtype, shape and contiguity, launch on PyTorch's current stream
 without synchronising, and count their launches in `LAUNCHES` (the
 registry's counters kernels.seqalign.<kernel>).  They never
 fall back to the plain versions of ops/seqalign.py: a CUDA tensor launches a
 kernel or raises.  The launch geometry is chosen by the small pure
-functions `banded_layout`, `pairs_layout`, `walk_layout` and
-`walk_plan`, which run anywhere; the `_launch_*` functions take the
+functions `banded_layout`, `pairs_layout`, `walk_layout`, `walk_plan`
+and `bandtrace_layout`, which run anywhere; the `_launch_*` functions take the
 library as an argument, so that the host build of the source
 (cuda_build.build_host) runs them on CPU tensors.
 
@@ -56,8 +58,27 @@ WALK_BAND_ROWS = 1024     # rows of a row block of the walk's band, at most
 # 300 k x 600 k cells under 1 GiB.
 WALK_BUDGET = 256 << 20
 
+# The banded walk's launch layout (csrc/seqalign.cu, checked against the
+# library in _bind): int64 words of a walk in a launch's table, int32 words
+# of a block in it, int32 words of a walk's result before its ops, threads
+# of a block of the forward pass, and the widest band it takes.
+BT_TABLE_WORDS = 16
+BT_BLOCK_WORDS = 4
+BT_HEAD = 8
+BT_THREADS = 128
+BT_MAX_WIDTH = 8192
+
+# Device bytes of band codes (2 bits a cell) that one banded-walk launch
+# may hold.  A wave whose codes pass it runs as several launches, its
+# longest walks first, and a walk whose codes alone pass it as a launch of
+# its own; ont_r10.align's largest walk (201.6 k rows at band 2,048) holds
+# 103 MB.  On an H100, 128 MiB aligned as many reads a second as 512 MiB
+# in the align cells, at 193 MB of peak device memory in hifi.align
+# against 516 MB (PERF.md).
+BANDTRACE_BUDGET = 128 << 20
+
 LAUNCHES = profiling.view(profiling.COUNTS, "kernels.seqalign.",
-                         ("banded", "pairs", "cross", "walk"))
+                         ("banded", "pairs", "cross", "walk", "bandtrace"))
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -81,17 +102,27 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sa_walk_tiles.argtypes = [vp, vp, vp, ci, ci, vp, ll, vp, vp, ci, ci,
                                   vp]
     lib.sa_walk_trace.argtypes = [vp, vp, ci, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.sa_bandtrace.argtypes = [vp, vp, ci, vp, ci, vp, vp, ci, vp]
     for fn in (lib.sa_banded_rows, lib.sa_banded_fwd,
                lib.sa_local_strip, lib.sa_local_fwd, lib.sa_pairs_fwd,
                lib.sa_walk, lib.sa_walk_rows, lib.sa_walk_tiles,
                lib.sa_walk_trace, lib.sa_walk_k, lib.sa_walk_head,
-               lib.sa_walk_tile_words):
+               lib.sa_walk_tile_words, lib.sa_bandtrace,
+               lib.sa_bandtrace_table_words, lib.sa_bandtrace_block_words,
+               lib.sa_bandtrace_head):
         fn.restype = ci
     got = (lib.sa_walk_k(), lib.sa_walk_head(), lib.sa_walk_tile_words())
     if got != (WALK_K, WALK_HEAD, WALK_TILE_WORDS):
         raise RuntimeError(f"the walk kernel's layout (WALK_K, WALK_HEAD, "
                            f"WALK_TILE_WORDS) = {got} differs from this "
                            f"module's {(WALK_K, WALK_HEAD, WALK_TILE_WORDS)}")
+    got = (lib.sa_bandtrace_table_words(), lib.sa_bandtrace_block_words(),
+           lib.sa_bandtrace_head())
+    if got != (BT_TABLE_WORDS, BT_BLOCK_WORDS, BT_HEAD):
+        raise RuntimeError(f"the banded walk's layout (BT_TABLE_WORDS, "
+                           f"BT_BLOCK_WORDS, BT_HEAD) = {got} differs from "
+                           f"this module's "
+                           f"{(BT_TABLE_WORDS, BT_BLOCK_WORDS, BT_HEAD)}")
     return lib
 
 
@@ -194,6 +225,22 @@ def walk_band(rows: int, cols: int, score: int, every: int,
     if sum(walk_groups(c) * n for _, n, _, c in out) * 2 > budget * 7 // 4:
         return None
     return out
+
+
+def bandtrace_layout(width: int) -> Tuple[int, int]:
+    """(lanes a thread L, threads a team G) of the banded walk's forward
+    pass for a band of `width` lanes: L the least power of two from 4 with
+    which BT_THREADS threads cover the band, G the power of two that covers
+    it with L lanes each, at least four (the codes of a row are whole
+    32-bit words).  A row's latency falls with the lanes a thread, so a
+    band takes up to 128 threads before more lanes: 128 lanes are one warp
+    of 4 lanes a thread, 512 four warps of 4, 2,048 four warps of 16.
+    Raises for a band it does not take (K3 scores none of them on CUDA)."""
+    if not 4 <= width <= BT_MAX_WIDTH:
+        raise ValueError(f"band width {width} is not served by the banded walk "
+                         f"(4 to {BT_MAX_WIDTH})")
+    lanes = max(4, 1 << (-(-width // BT_THREADS) - 1).bit_length())
+    return lanes, max(16 // lanes, 1 << (-(-width // lanes) - 1).bit_length())
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
@@ -539,3 +586,164 @@ def full_walk_cuda(read_codes, path_codes):
     stream = torch.cuda.current_stream(device).cuda_stream
     out, _ = _launch_walk(_lib(), read_codes, path_codes, stream)
     return walk_result(out.cpu(), rows, cols)
+
+
+class _BandJob(NamedTuple):
+    """A banded walk the kernel takes: seqalign.banded_traceback's
+    arguments, its end lane and its layout."""
+    read: np.ndarray
+    path: np.ndarray
+    end_i: int
+    end_j: int
+    delta: int
+    width: int
+    expected: int
+    u_end: int
+    lanes: int
+    team: int
+
+
+_OPS = np.frombuffer(b"=XID", np.uint8)   # the kernel's 2-bit ops
+_OP_SHIFTS = 2 * np.arange(16, dtype=np.uint32)
+
+
+def _bandtrace_blocks(jobs: List[_BandJob]) -> Tuple[List[int], np.ndarray]:
+    """The table order of a launch's walks (by layout, then longest first)
+    and its blocks, (first table row, teams, lanes, team threads) each: the
+    walks of one layout BT_THREADS / G to a block (one for a team of 128
+    threads), the blocks of the longest walks first."""
+    order = sorted(range(len(jobs)),
+                   key=lambda k: (jobs[k].lanes, jobs[k].team, -jobs[k].end_i))
+    blocks, row = [], 0
+    while row < len(order):
+        job = jobs[order[row]]
+        per_block = max(1, BT_THREADS // job.team)
+        n = 0
+        while (n < per_block and row + n < len(order)
+               and jobs[order[row + n]][8:] == job[8:]):
+            n += 1
+        blocks.append((job.end_i, row, n, job.lanes, job.team))
+        row += n
+    blocks.sort(key=lambda b: -b[0])
+    return order, np.array([b[1:] for b in blocks], np.int32).reshape(-1, BT_BLOCK_WORDS)
+
+
+def _launch_bandtrace(lib, jobs: List[_BandJob], device, stream):
+    """One sa_bandtrace launch over `jobs` on `device`: the table, the
+    blocks and every read and path char go up in one copy, the results
+    come back in one.  Returns, a walk, (score, qstart, pstart, matches,
+    nm, ops) or None where a parity gate declined it, and, for checks, the
+    code words on the device with each walk's first word (band_codes
+    reads them)."""
+    order, blocks = _bandtrace_blocks(jobs)
+    n = len(jobs)
+    table = np.zeros((n, BT_TABLE_WORDS), np.int64)
+    chars, at, code_at, res_at = [], 0, 0, 0
+    for row, k in enumerate(order):
+        job = jobs[k]
+        w2 = job.width // 2
+        lo = min(max(0, job.delta - w2), job.end_j)
+        stride = job.team * job.lanes // 16
+        cap = 16 * ((2 * job.end_i + job.u_end) // 16 + 1)
+        table[row] = (at, at + job.end_i, lo, job.end_i, job.end_j, job.delta,
+                      job.width, code_at, stride, res_at, job.expected,
+                      job.u_end, cap, 0, 0, 0)
+        chars += [job.read[:job.end_i], job.path[lo:job.end_j]]
+        at += job.end_i + job.end_j - lo
+        code_at += -(-job.end_i * stride // 4) * 4
+        res_at += BT_HEAD + cap // 16
+    head = table.nbytes + blocks.nbytes
+    buf = np.empty(head + at, np.uint8)
+    buf[:table.nbytes] = table.view(np.uint8).reshape(-1)
+    buf[table.nbytes:head] = blocks.view(np.uint8).reshape(-1)
+    np.concatenate(chars, out=buf[head:].view(np.int8))
+    up = torch.from_numpy(buf).to(device)
+    codes = torch.empty((max(1, code_at),), dtype=torch.int32, device=device)
+    res = torch.empty((res_at,), dtype=torch.int32, device=device)
+    base = up.data_ptr()
+    err = lib.sa_bandtrace(base + head, base, n, base + table.nbytes,
+                           len(blocks), codes.data_ptr(), res.data_ptr(),
+                           max(job.width for job in jobs), stream)
+    if err != 0:
+        raise RuntimeError(f"sa_bandtrace launch failed: cudaError {err} "
+                           f"(walks={n}, blocks={len(blocks)}, "
+                           f"rows={max(job.end_i for job in jobs)})")
+    profiling.count("kernels.seqalign.bandtrace")
+    words = res.cpu().numpy()
+    out = [None] * n
+    for row, k in enumerate(order):
+        at = int(table[row, 9])
+        status, score, qstart, pstart, matches, nm, n_ops = (
+            int(x) for x in words[at:at + 7])
+        if status not in (1, 2):
+            raise RuntimeError(f"sa_bandtrace's walk ended as {status} "
+                               f"({n_ops} ops)")
+        if status == 2:
+            continue
+        packed = words[at + BT_HEAD:at + BT_HEAD + -(-n_ops // 16)].view(np.uint32)
+        ops = ((packed[:, None] >> _OP_SHIFTS) & 3).reshape(-1)[:n_ops]
+        out[k] = (score, qstart, pstart, matches, nm,
+                  _OPS[ops[::-1]].tobytes().decode())
+    return out, codes, table[np.argsort(order), 7]
+
+
+def band_codes(codes: torch.Tensor, first: int, rows: int, width: int) -> np.ndarray:
+    """The moves of one walk's band codes (a launch's code words `codes`
+    from word `first`, rows x width cells) on the host as a (rows, width)
+    uint8 array laid out as seqalign.band_codes_ref's codes[1:]: 0 stop,
+    1 diagonal, 2 up, 3 left.  For checks."""
+    lanes, team = bandtrace_layout(width)
+    stride = lanes * team // 16
+    words = codes[first:first + rows * stride].cpu().numpy().view(np.uint32)
+    moves = (words.reshape(rows, stride)[:, :, None] >> _OP_SHIFTS) & 3
+    return moves.reshape(rows, -1)[:, :width].astype(np.uint8)
+
+
+def _band_walks(lib, walks, device, stream) -> list:
+    """banded_walks_cuda on `lib` and the tensors of `device` (the host
+    build of the source runs it on the CPU): the walks whose end lies on
+    the band go in launches of sa_bandtrace, longest first, each within
+    BANDTRACE_BUDGET bytes of band codes (a longer walk alone)."""
+    from .seqalign import band_end
+
+    jobs, slots = [], []
+    for n, (read, path, end_i, end_j, delta, width, expected) in enumerate(walks):
+        u_end = band_end(len(read), len(path), end_i, end_j, delta, width)
+        if u_end is None:
+            continue
+        jobs.append(_BandJob(read, path, int(end_i), int(end_j), int(delta),
+                             int(width), int(expected), u_end,
+                             *bandtrace_layout(int(width))))
+        slots.append(n)
+    out = [None] * len(walks)
+    order = sorted(range(len(jobs)), key=lambda k: -jobs[k].end_i)
+    start = 0
+    while start < len(order):
+        stop, held = start, 0
+        while stop < len(order):
+            job = jobs[order[stop]]
+            held += job.end_i * job.team * job.lanes // 4
+            if stop > start and held > BANDTRACE_BUDGET:
+                break
+            stop += 1
+        part = order[start:stop]
+        for k, got in zip(part, _launch_bandtrace(lib, [jobs[k] for k in part],
+                                                  device, stream)[0]):
+            out[slots[k]] = got
+        start = stop
+    return out
+
+
+def banded_walks_cuda(walks, device) -> list:
+    """The banded tracebacks of `walks` (seqalign.banded_traceback's
+    arguments each: read and path int8 numpy arrays, end_i, end_j, delta,
+    width, expected) on the CUDA `device`, as seq_banded_traceback walks
+    them: a walk, (score, qstart, pstart, matches, nm, ops), or None where
+    its end lies off the band or a parity gate declined it.  One
+    sa_bandtrace launch takes the walks whose codes fit BANDTRACE_BUDGET
+    (_band_walks); the caller waits for each launch's results."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("banded_walks_cuda needs a CUDA device")
+    return _band_walks(_lib(), walks, device,
+                       torch.cuda.current_stream(device).cuda_stream)

@@ -16,12 +16,16 @@ import pytest
 import torch
 
 from gfalign_torch import synth
-from gfalign_torch.bench_seqalign import (WALK_BLOCK_RUNS, WALK_CASES, WALK_CLR,
-                                          clr_pair, ultra_long_banded_inputs,
+from gfalign_torch.bench_seqalign import (BAND_WALK_CASES, WALK_BLOCK_RUNS,
+                                          WALK_CASES, WALK_CLR, band_walk_case,
+                                          clr_band_walks, clr_pair,
+                                          ultra_long_band_walks,
+                                          ultra_long_banded_inputs,
                                           walk_block_case, walk_budget, walk_case,
                                           walk_mode_patches)
 from gfalign_torch.cli.main import main
 from gfalign_torch.engine.evaluate import evaluate_candidates
+from gfalign_torch.io import native
 from gfalign_torch.ops import nw_cuda, seqalign, seqalign_cuda
 from gfalign_torch.ops.nw_path import Step, nw_best_scores_ref, nw_pair_scores_ref
 from gfalign_torch.utils import profiling
@@ -255,6 +259,104 @@ def test_seqalign_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="band width"):
         seqalign.banded_pair_scores(reads, paths, torch.zeros(4, dtype=torch.int32),
                                     width=6)
+
+
+def host_band_walks(walks):
+    """The native host walk (seq_banded_traceback) of each banded walk."""
+    return [native.banded_local_traceback(
+        *walk, seqalign.MATCH, seqalign.MISMATCH, seqalign.GAP, seqalign.PAD,
+        seqalign._BLOCK) for walk in walks]
+
+
+@pytest.mark.parametrize("width", [16, 100, 128, 200, 512, 520, 1024, 2048, 4096,
+                                   8192])
+def test_bandtrace_kernel_matches_native_and_plain(width, cuda):
+    """The banded walk kernel (sa_bandtrace) against the native walk and
+    the plain version, bit-exact, on every small case of bench_seqalign's
+    (PAD-masked reads and paths, N codes, ties, local starts, bands over
+    either end of the path, declines of both gates, ends on and off the
+    band's edge), one launch for all of them."""
+    walks = [band_walk_case(case, width) for case in BAND_WALK_CASES]
+    before = seqalign_cuda.LAUNCHES["bandtrace"]
+    got = seqalign_cuda.banded_walks_cuda(walks, cuda)
+    assert seqalign_cuda.LAUNCHES["bandtrace"] == before + 1
+    assert got == host_band_walks(walks)
+    assert got == [seqalign.banded_walk_ref(*walk) for walk in walks]
+    assert got[BAND_WALK_CASES.index("edge-walk")] is None
+    assert got[BAND_WALK_CASES.index("random")] is not None
+
+
+def mixed_band_walks(cuda):
+    """One wave of every layout: the small cases at bands 128-2,048 and
+    CLR-sized walks at 512 and 1,024."""
+    return ([band_walk_case(case, width) for width in (128, 512, 1024, 2048)
+             for case in BAND_WALK_CASES]
+            + clr_band_walks(6, 512, cuda) + clr_band_walks(3, 1024, cuda, seed=16))
+
+
+def test_bandtrace_kernel_on_a_mixed_wave(cuda):
+    walks = mixed_band_walks(cuda)
+    before = seqalign_cuda.LAUNCHES["bandtrace"]
+    got = seqalign_cuda.banded_walks_cuda(walks, cuda)
+    assert seqalign_cuda.LAUNCHES["bandtrace"] == before + 1
+    assert got == host_band_walks(walks)
+    assert sum(g is not None and len(g[5]) > 10_000 for g in got) >= 6
+
+
+def test_bandtrace_budget_splits_a_wave(cuda, monkeypatch):
+    """A wave over the codes budget runs as several launches, one a walk
+    at a budget of one byte (the walks of no rows, which hold no codes,
+    together), with the results of one walk at a time."""
+    walks = mixed_band_walks(cuda)
+    rows = [w[2] for w in walks
+            if seqalign.band_end(len(w[0]), len(w[1]), *w[2:6]) is not None]
+    whole = seqalign_cuda.banded_walks_cuda(walks, cuda)
+    alone = [seqalign_cuda.banded_walks_cuda([w], cuda)[0] for w in walks]
+    monkeypatch.setattr(seqalign_cuda, "BANDTRACE_BUDGET", 1)
+    before = seqalign_cuda.LAUNCHES["bandtrace"]
+    split = seqalign_cuda.banded_walks_cuda(walks, cuda)
+    assert (seqalign_cuda.LAUNCHES["bandtrace"] - before
+            == sum(r > 0 for r in rows) + (0 in rows))
+    assert split == alone
+    assert split == whole
+
+
+@pytest.mark.parametrize("width", [1024, 2048])
+def test_bandtrace_kernel_at_ultra_long_reads(width, cuda):
+    """The banded walk at ont_r10.align's shape: reads of 3-201.6 kb, the
+    longest twice (once 700 diagonals off, so that its band loses it),
+    ending at K3's best cells; equal to the native walk."""
+    walks = ultra_long_band_walks(width, cuda)
+    got = seqalign_cuda.banded_walks_cuda(walks, cuda)
+    assert got == host_band_walks(walks)
+    assert max(w[2] for w, g in zip(walks, got) if g is not None) > 150_000
+
+
+def test_align_on_cuda_walks_banded_on_the_card(cuda, tmp_path):
+    """On CUDA every banded walk goes to the banded walk kernel, in waves,
+    and every full walk to the walk kernel; the GAF is the CPU run's."""
+    kw = dict(seed=7, n_segments=80, n_reads=24, seg_len=(200, 600),
+              read_len=(1000, 3000), sub_rate=0.03, ins_rate=0.03,
+              del_rate=0.03, tangle_read_frac=0.3)
+    paths = synth.write_workload(synth.make_workload(**kw), str(tmp_path))
+    gafs, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.gaf"
+        before = profiling.snapshot()
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["align", "-f", paths["gfa"], "-r", paths["reads"], "-o",
+                         str(out), "-p", "CLR", "--band", "24", "--wide-band",
+                         "40"], device=dev) == 0
+        counts[dev] = profiling.since(before)["counts"]
+        gafs[dev] = out.read_bytes()
+    assert gafs["cuda"] == gafs["cpu"] != b""
+    card, host = counts["cuda"], counts["cpu"]
+    for key in ("banded_walks", "declined", "full_walks"):
+        assert card[f"align.traceback.{key}"] == host[f"align.traceback.{key}"] > 0
+    assert "align.traceback.native" not in card
+    assert card["align.traceback.banded_cuda"] == card["align.traceback.banded_walks"]
+    assert card["align.traceback.cuda"] == card["align.traceback.full_walks"]
+    assert 0 < card["kernels.seqalign.bandtrace"] < card["align.traceback.banded_walks"]
 
 
 @pytest.mark.parametrize("case", list(WALK_CASES) + list(WALK_CLR))

@@ -228,7 +228,7 @@ def test_banded_traceback_matches_oracle_and_jax(seed, width):
         args = (read, path, ei, ej, delta, width, expected)
         got = native.banded_local_traceback(*args, *SA)
         assert got == jax_native.banded_local_traceback(*args, *SA)
-        assert got == seqalign._banded_traceback_py(*args)
+        assert got == seqalign.banded_walk_ref(*args)
         passed += got is not None
     assert passed > 10
 
@@ -239,11 +239,13 @@ def test_traceback_dispatch_counts_its_route(monkeypatch):
     for route in seqalign.TRACEBACK_CALLS:      # the registry's counters
         monkeypatch.setitem(seqalign.TRACEBACK_CALLS, route, 0)
     native_pl = seqalign.traceback(read, path, len(read), len(path))
-    assert seqalign.TRACEBACK_CALLS == {"native": 1, "python": 0, "cuda": 0}
+    assert seqalign.TRACEBACK_CALLS == {"native": 1, "python": 0, "cuda": 0,
+                                        "banded_cuda": 0}
     monkeypatch.setattr(native, "available", lambda: False)
     assert seqalign.traceback(read, path, len(read), len(path)) == native_pl
     assert seqalign.banded_traceback(read, path, 3, 3, 0, 16, -1) is None
-    assert seqalign.TRACEBACK_CALLS == {"native": 1, "python": 2, "cuda": 0}
+    assert seqalign.TRACEBACK_CALLS == {"native": 1, "python": 2, "cuda": 0,
+                                        "banded_cuda": 0}
 
 
 # ----------------------------------------------------------- path-space NW

@@ -3,6 +3,10 @@ against the JAX package: the XLA scans and the Pallas kernels in interpret
 mode, on the same numpy inputs.  Everything is int32 or bool, so the
 tolerance is exact equality."""
 
+import contextlib
+import hashlib
+import io
+import json
 import math
 
 import numpy as np
@@ -11,8 +15,11 @@ import torch
 
 from gfalign_tpu.ops import seqalign as jax_seqalign
 from gfalign_tpu.ops import seqalign_pallas as jax_pallas
-from gfalign_torch.bench_seqalign import (WALK_BLOCK_CASES, WALK_CASES,
+from gfalign_torch import synth
+from gfalign_torch.bench_seqalign import (BAND_WALK_CASES, WALK_BLOCK_CASES,
+                                          WALK_CASES, band_walk_case,
                                           walk_block_case, walk_case)
+from gfalign_torch.cli.main import main
 from gfalign_torch.engine.graph_align import DevicePools
 from gfalign_torch.io import native
 from gfalign_torch.ops import seqalign
@@ -258,8 +265,8 @@ def test_tracebacks_match_the_jax_package(seed):
         assert got.score == best
         for width in (16, 64, 128):
             for expected in (best, best + 1):
-                mine = seqalign._banded_traceback_py(read, path, bi, bj, bj - bi,
-                                                     width, expected)
+                mine = seqalign.banded_walk_ref(read, path, bi, bj, bj - bi,
+                                                width, expected)
                 ref = jax_seqalign._banded_traceback_py(read, path, bi, bj,
                                                         bj - bi, width, expected)
                 assert mine == ref
@@ -363,3 +370,119 @@ def test_cut_and_blocked_walks_match_plain(case):
     assert got == plain
     root = math.isqrt(ei)
     assert held == 4 * (ej + 1) * (root + 1 + (ei - 1) // root)
+
+
+@pytest.mark.parametrize("width", [16, 128, 512, 1024, 2048])
+@pytest.mark.parametrize("case", BAND_WALK_CASES)
+def test_banded_walk_plain_matches_native(case, width):
+    """The plain banded walk (band_codes_ref and its walk, the banded walk
+    kernel's plain version) against the native walk, seq_banded_traceback:
+    ops, qstart, pstart, matches and nm, or None on a decline; PAD-masked
+    reads and paths, N codes, ties, a local start mid-band, bands over
+    either end of the path, ends on and off the band's edge, an end value
+    that misses `expected` and a walk onto the band's edge."""
+    walk = band_walk_case(case, width)
+    got = seqalign.banded_walk_ref(*walk)
+    assert got == native.banded_local_traceback(
+        *walk, seqalign.MATCH, seqalign.MISMATCH, seqalign.GAP, seqalign.PAD,
+        seqalign._BLOCK)
+    if case in ("expected-missed", "end-on-edge", "end-off-band", "edge-walk"):
+        assert got is None
+    elif case in ("random", "pad-masked", "repeats", "homopolymers"):
+        assert got is not None and got[0] == walk[6]
+    if case == "edge-walk":     # the end value holds: the second gate declines
+        read, path, ei, ej, delta, width, expected = walk
+        last, codes = seqalign.band_codes_ref(torch.from_numpy(read[:ei]),
+                                              torch.from_numpy(path[:ej]),
+                                              delta, width)
+        assert int(last[seqalign.band_end(len(read), len(path), ei, ej, delta,
+                                           width)]) == expected
+        assert (codes[:, 0] > 0).any()
+
+
+def test_banded_tracebacks_walk_one_by_one_off_cuda(monkeypatch):
+    """Off CUDA a wave is banded_traceback a walk (the module's attribute,
+    so that a caller's wrapper sees each), in order."""
+    walks = [band_walk_case(case, 128) for case in BAND_WALK_CASES]
+    seen = []
+    real = seqalign.banded_traceback
+
+    def recording(*walk):
+        seen.append(walk)
+        return real(*walk)
+
+    monkeypatch.setattr(seqalign, "banded_traceback", recording)
+    got = seqalign.banded_tracebacks(walks, "cpu")
+    assert seen == walks
+    assert got == [real(*walk) for walk in walks]
+
+
+# CPU align runs and the walks a read-by-read placement loop made on them
+# (before the loop walked in waves): per read, the sequence of its banded
+# walks (path, end cell, diagonal, band, score, declined) and full walks
+# (path, end cell), as an md5 over the reads, and the GAF's md5 and counters
+ALIGN_WALKS = {
+    "hifi": (dict(seed=41, n_segments=120, n_reads=40, seg_len=(120, 400),
+                  read_len=(300, 1500), sub_rate=0.01, ins_rate=0.002,
+                  del_rate=0.002, tangle_read_frac=0.3), [],
+             dict(walks_md5="1e3a92be201d30267c9974697a799ae9",
+                  gaf_md5="f96631bb1bd8a2c53ceacb444ee5fabe", reads_walked=40,
+                  most_walks_a_read=3, banded_walks=47, declined=0,
+                  full_walks=0)),
+    "clr-narrow": (dict(seed=7, n_segments=80, n_reads=24, seg_len=(200, 600),
+                        read_len=(1000, 3000), sub_rate=0.03, ins_rate=0.03,
+                        del_rate=0.03, tangle_read_frac=0.3),
+                   ["-p", "CLR", "--band", "24", "--wide-band", "40"],
+                   dict(walks_md5="2753e9196eba824a953960f20068f34b",
+                        gaf_md5="6fd1bc822880f2f4552a4925016f07e4",
+                        reads_walked=24, most_walks_a_read=3, banded_walks=29,
+                        declined=9, full_walks=9)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ALIGN_WALKS))
+def test_align_makes_the_recorded_walks(case, tmp_path, monkeypatch):
+    """The placement loop in waves makes, read by read, the walks that the
+    read-by-read loop made, in the same order, with the same counters and
+    the same GAF."""
+    kw, args, want = ALIGN_WALKS[case]
+    walks, first = {}, {}
+
+    def read_key(read):     # the read's codes before any masking
+        if id(read) not in first:
+            first[id(read)] = hashlib.md5(read.tobytes()).hexdigest()[:12]
+        return first[id(read)]
+
+    def path_key(path):
+        return hashlib.md5(path.tobytes()).hexdigest()[:12]
+
+    banded, full = seqalign.banded_traceback, seqalign.traceback
+
+    def banded_rec(read, path, ei, ej, delta, width, expected):
+        pl = banded(read, path, ei, ej, delta, width, expected)
+        walks.setdefault(read_key(read), []).append(
+            ("b", path_key(path), int(ei), int(ej), int(delta), int(width),
+             int(expected), pl is None))
+        return pl
+
+    def full_rec(read, path, ei, ej, *a, **k):
+        walks.setdefault(read_key(read), []).append(
+            ("f", path_key(path), int(ei), int(ej)))
+        return full(read, path, ei, ej, *a, **k)
+
+    monkeypatch.setattr(seqalign, "banded_traceback", banded_rec)
+    monkeypatch.setattr(seqalign, "traceback", full_rec)
+    paths = synth.write_workload(synth.make_workload(**kw), str(tmp_path))
+    before = profiling.snapshot()
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert main(["align", "-f", paths["gfa"], "-r", paths["reads"], "-o",
+                     str(tmp_path / "out.gaf"), *args], device="cpu") == 0
+    counts = profiling.since(before)["counts"]
+    blob = json.dumps(sorted(walks.items()), sort_keys=True).encode()
+    got = dict(walks_md5=hashlib.md5(blob).hexdigest(),
+               gaf_md5=hashlib.md5((tmp_path / "out.gaf").read_bytes()).hexdigest(),
+               reads_walked=len(walks),
+               most_walks_a_read=max(len(v) for v in walks.values()),
+               **{k: counts.get("align.traceback." + k, 0)
+                  for k in ("banded_walks", "declined", "full_walks")})
+    assert got == want

@@ -1,4 +1,4 @@
-"""K3, K4, K5 and the walk (gfalign_torch/csrc/seqalign.cu) run on the CPU: the CUDA
+"""K3, K4, K5, the walk and the banded walk (gfalign_torch/csrc/seqalign.cu) run on the CPU: the CUDA
 source is built for the host with g++ and csrc/host_shim/cuda_runtime.h (a
 block's threads as OS threads, blocks one after another, barriers and
 shuffles as std::barrier exchanges) and driven by the launchers of
@@ -9,17 +9,22 @@ tests/test_torch_seqalign.py holds against the JAX package.  What nvcc
 accepts and what the card computes is checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Skips without g++."""
 
+import contextlib
 import ctypes
+import io
 import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from gfalign_torch.bench_seqalign import (WALK_BLOCK_RUNS, WALK_CASES,
-                                          walk_block_case, walk_budget,
-                                          walk_mode_patches,
+from gfalign_torch import synth
+from gfalign_torch.bench_seqalign import (BAND_WALK_CASES,
+                                          WALK_BLOCK_RUNS, WALK_CASES,
+                                          band_walk_case, walk_block_case,
+                                          walk_budget, walk_mode_patches,
                                           walk_case)
+from gfalign_torch.cli.main import main
 from gfalign_torch.io import native
 from gfalign_torch.ops import cuda_build, seqalign, seqalign_cuda
 from gfalign_torch.ops.seqalign import PAD
@@ -419,3 +424,168 @@ def test_walk_layout_covers_the_columns(cols, blocks):
     T, parts = seqalign_cuda.walk_layout(cols)
     assert (T, parts) == (64, blocks)
     assert parts * T * seqalign_cuda.WALK_K >= cols
+
+
+def native_band_walks(walks):
+    return [native.banded_local_traceback(*walk, seqalign.MATCH,
+                                          seqalign.MISMATCH, seqalign.GAP, PAD,
+                                          seqalign._BLOCK) for walk in walks]
+
+
+def host_band_walks(lib, walks):
+    return seqalign_cuda._band_walks(lib, walks, torch.device("cpu"), None)
+
+
+# A team of several warps costs the host build a barrier of 128 OS threads
+# a row, so the tests run most walks under a layout of one warp or less
+# (few_threads: 16 to 64 lanes a thread up to 2,048 lanes) and the
+# launcher's own layouts on fewer cases (MULTI_WARP_CASES)
+MULTI_WARP_CASES = ("random", "masked-runs", "drift", "edge-walk", "path-end",
+                    "expected-missed")
+
+
+@pytest.fixture
+def few_threads(monkeypatch):
+    def layout(width):
+        lanes = max(16, 1 << (-(-width // 32) - 1).bit_length())
+        return lanes, 1 << (-(-width // lanes) - 1).bit_length()
+
+    monkeypatch.setattr(seqalign_cuda, "bandtrace_layout", layout)
+
+
+@pytest.mark.parametrize("width", [16, 24, 100, 128, 512, 520, 2048])
+def test_bandtrace_on_the_host_matches_native(width, host_lib, few_threads):
+    """The banded walk kernel's source against the native walk, every
+    small case of bench_seqalign in one launch, teams of one to 32 threads
+    of 16 to 64 lanes: dead lanes (24, 100, 520), masked rows at the path's
+    ends, skipped PAD rows, both gates (the card tests take every case at
+    every band, tests/test_torch_cuda.py)."""
+    walks = [band_walk_case(case, width) for case in BAND_WALK_CASES]
+    before = seqalign_cuda.LAUNCHES["bandtrace"]
+    assert host_band_walks(host_lib, walks) == native_band_walks(walks)
+    assert seqalign_cuda.LAUNCHES["bandtrace"] == before + 1
+
+
+@pytest.mark.parametrize("width", [128, 200, 512, 520, 2048, 4096])
+def test_bandtrace_layouts_on_the_host_match_native(width, host_lib):
+    """The launcher's own layouts (bandtrace_layout): one warp of 4 lanes
+    a thread (128), two teams of two warps a block (200, dead lanes),
+    teams of four warps of 4, 8, 16 and 32 lanes (512, 520 with dead
+    lanes, 2,048, 4,096), on MULTI_WARP_CASES in one launch."""
+    walks = [band_walk_case(case, width) for case in MULTI_WARP_CASES]
+    assert host_band_walks(host_lib, walks) == native_band_walks(walks)
+
+
+@pytest.mark.parametrize("width", [24, 128, 520])
+def test_bandtrace_codes_on_the_host_match_plain(width, host_lib):
+    """Every cell's move of the forward pass, not only those the walks
+    pass through, against band_codes_ref: masked and plain rows, dead
+    lanes, the band's edge lanes, and chunks of PAD rows skipped (a walk
+    alone in its launch, so that its warp's other teams are idle)."""
+    walks = [band_walk_case(case, width) for case in
+             ("random", "masked-runs", "path-start", "path-end", "n-codes")]
+    jobs = [seqalign_cuda._BandJob(*w[:7], seqalign.band_end(len(w[0]), len(w[1]),
+                                                             *w[2:6]),
+                                   *seqalign_cuda.bandtrace_layout(width))
+            for w in walks]
+    for group in ((jobs, jobs[1:2]) if jobs[0].team <= 32 else (jobs[1:2],)):
+        _, codes, first = seqalign_cuda._launch_bandtrace(
+            host_lib, group, torch.device("cpu"), None)
+        for job, at in zip(group, first):
+            _, want = seqalign.band_codes_ref(torch.from_numpy(job.read[:job.end_i]),
+                                              torch.from_numpy(job.path[:job.end_j]),
+                                              job.delta, width)
+            np.testing.assert_array_equal(
+                seqalign_cuda.band_codes(codes, int(at), job.end_i, width),
+                want.numpy()[1:])
+
+
+def test_bandtrace_long_deletion_on_the_host(host_lib, few_threads, width=2048):
+    """A walk whose D run crosses 400 lanes of a wide band in one row
+    leaves its stage's window of lanes sideways (the window reaches at
+    most 383 lanes left of the walk); the next stage goes on from it."""
+    walk = band_walk_case("long-deletion", width)
+    got = host_band_walks(host_lib, [walk])
+    assert got == native_band_walks([walk]) and "D" * 400 in got[0][5]
+
+
+def test_bandtrace_wave_of_every_layout_and_its_budget_on_the_host(host_lib,
+                                                                  few_threads,
+                                                                  monkeypatch):
+    """One launch takes walks of several layouts (blocks of each, the
+    longest first); at a budget of one byte each walk on the band is a
+    launch of its own, with the same results."""
+    walks = [band_walk_case(case, width) for width in (16, 100, 520, 2048)
+             for case in ("random", "edge-walk", "end-on-edge")]
+    want = native_band_walks(walks)
+    before = seqalign_cuda.LAUNCHES["bandtrace"]
+    assert host_band_walks(host_lib, walks) == want
+    assert seqalign_cuda.LAUNCHES["bandtrace"] == before + 1
+    monkeypatch.setattr(seqalign_cuda, "BANDTRACE_BUDGET", 1)
+    assert host_band_walks(host_lib, walks) == want
+    on_band = sum(seqalign.band_end(len(w[0]), len(w[1]), *w[2:6]) is not None
+                  for w in walks)
+    assert seqalign_cuda.LAUNCHES["bandtrace"] == before + 1 + on_band
+    order, blocks = seqalign_cuda._bandtrace_blocks(
+        [seqalign_cuda._BandJob(*w[:7], 1, *seqalign_cuda.bandtrace_layout(w[5]))
+         for w in walks])
+    assert sorted(order) == list(range(len(walks)))
+    assert blocks[:, 1].sum() == len(walks)
+
+
+@pytest.mark.parametrize("width, want", [
+    (4, (4, 4)), (16, (4, 4)), (17, (4, 8)), (100, (4, 32)), (128, (4, 32)),
+    (129, (4, 64)), (512, (4, 128)), (513, (8, 128)), (1024, (8, 128)),
+    (1025, (16, 128)), (2048, (16, 128)), (2049, (32, 128)), (4096, (32, 128)),
+    (8192, (64, 128))])
+def test_bandtrace_layout_covers_the_band(width, want):
+    lanes, team = seqalign_cuda.bandtrace_layout(width)
+    assert (lanes, team) == want and lanes * team >= width
+    assert lanes * team % 16 == 0 and team <= seqalign_cuda.BT_THREADS
+
+
+def test_bandtrace_layout_refuses_what_it_does_not_take(host_lib, monkeypatch):
+    for width in (3, 8193):
+        with pytest.raises(ValueError, match="band width"):
+            seqalign_cuda.bandtrace_layout(width)
+    assert (host_lib.sa_bandtrace_table_words(), host_lib.sa_bandtrace_block_words(),
+            host_lib.sa_bandtrace_head()) == (
+        seqalign_cuda.BT_TABLE_WORDS, seqalign_cuda.BT_BLOCK_WORDS,
+        seqalign_cuda.BT_HEAD)
+    monkeypatch.setattr(seqalign_cuda, "BT_HEAD", 2 * seqalign_cuda.BT_HEAD)
+    with pytest.raises(RuntimeError, match="banded walk's layout"):
+        seqalign_cuda._bind(host_lib)
+
+
+def test_align_through_the_host_bandtrace_matches_the_native_walks(
+        host_lib, few_threads, monkeypatch, tmp_path):
+    """The placement loop's waves through the banded walk kernel's source
+    (as on CUDA, here on the CPU): the GAF and the walk counters of the
+    native walks, fewer launches than walks."""
+    kw = dict(seed=7, n_segments=80, n_reads=16, seg_len=(200, 600),
+              read_len=(400, 900), sub_rate=0.03, ins_rate=0.03,
+              del_rate=0.03, tangle_read_frac=0.3)
+    paths = synth.write_workload(synth.make_workload(**kw), str(tmp_path))
+    argv = ["align", "-f", paths["gfa"], "-r", paths["reads"], "-o",
+            str(tmp_path / "out.gaf"), "-p", "CLR", "--band", "24",
+            "--wide-band", "40"]
+
+    def run():
+        before = profiling.snapshot()
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(argv, device="cpu") == 0
+        return ((tmp_path / "out.gaf").read_bytes(),
+                profiling.since(before)["counts"])
+
+    plain_gaf, plain = run()
+
+    def waves(walks, device="cpu"):
+        return [seqalign._banded_placement(res, w[2], w[3])
+                for res, w in zip(host_band_walks(host_lib, walks), walks)]
+
+    monkeypatch.setattr(seqalign, "banded_tracebacks", waves)
+    gaf, counts = run()
+    assert gaf == plain_gaf != b""
+    for key in ("banded_walks", "declined", "full_walks"):
+        assert counts[f"align.traceback.{key}"] == plain[f"align.traceback.{key}"] > 0
+    assert 0 < counts["kernels.seqalign.bandtrace"] < counts["align.traceback.banded_walks"]
