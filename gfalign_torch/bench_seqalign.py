@@ -17,7 +17,7 @@ first 1,024 of those pairs; K4 at 16 pairs of
 sends them, and at more pairs (32, 64, 128 and 256 of 4,096 x 8,192,
 1,024 of 2,048 x 4,096, all live: each side of pairs_layout's switch from
 split pairs to one block a pair), as a chunk of
-graph_align.score_pairs_full can hold when many band-edge pairs survive a
+seeded.SeededAlign.score_full can hold when many band-edge pairs survive a
 round; the walk at WALK_CLR's three CLR-sized pairs (20-30 kb reads at 87%
 against 40-60 kb paths) under one to eight warps a block.  Every variant is checked against the default geometry's outputs,
 and the default against the plain version on a few pairs.  Needs a CUDA

@@ -159,7 +159,7 @@ class KmerIndex:
         (segment offset - read position) — the expected alignment diagonal
         within the oriented segment, which the banded scorer centers on.
         votes (the anchor's total k-mer hit count) feeds the candidate
-        chain-colinearity ranking in graph_align.
+        chain-colinearity ranking (seeded.SeededAlign._chain).
 
         The cap extends through vote TIES at the boundary (an anchor as
         well-supported as a kept one is never silently dropped); anchors

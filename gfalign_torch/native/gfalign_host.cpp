@@ -706,7 +706,7 @@ const char* fq_seq_blob(FqData* h, int64_t* len) {
 void fq_close(FqData* h) { delete h; }
 
 // ------------------------------------------------- local-alignment traceback
-// Exact port of the Python oracle ops/seqalign.py traceback/_matrix (the
+// Exact port of the plain walk ops/seqalign.py full_walk on CPU tensors (the
 // align-mode host traceback of a device-selected placement; reference
 // counterpart is the base-level DP GraphAligner performs for gfalign's
 // align mode, src/main.cpp:167-169).  Semantics reproduced bit-for-bit:

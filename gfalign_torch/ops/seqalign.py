@@ -387,21 +387,6 @@ def _banded_forward_core(read_codes, strip, deltas, plens, *, width: int):
 # ---------------------------------------------------------------------------
 
 
-def _matrix(read: np.ndarray, path: np.ndarray) -> np.ndarray:
-    Lr, Lp = len(read), len(path)
-    H = np.zeros((Lr + 1, Lp + 1), dtype=np.int32)
-    decay = -GAP * np.arange(Lp, dtype=np.int32)  # max-plus decay offsets
-    for i in range(1, Lr + 1):
-        rc = read[i - 1]
-        sub = np.where((path == PAD) | (rc == PAD), _BLOCK,
-                       np.where((path < 4) & (rc < 4) & (path == rc), MATCH, MISMATCH))
-        prev = H[i - 1]
-        c = np.maximum(0, np.maximum(prev[:-1] + sub, prev[1:] + GAP))
-        # horizontal chain H[j] = max(c[j], H[j-1]+GAP) as one accumulate
-        H[i, 1:] = np.maximum.accumulate(c + decay) - decay
-    return H
-
-
 def _runs(ops) -> List[Tuple[int, str]]:
     """Run-length encode an op sequence (a string or a list of chars)."""
     if not ops:
@@ -415,8 +400,7 @@ def _runs(ops) -> List[Tuple[int, str]]:
 
 def walk_codes_ref(read_codes: torch.Tensor, path_codes: torch.Tensor):
     """Plain version of the walk kernel's forward pass (CPU tensors): H row
-    by row over read_codes (rows,) x path_codes (cols,), as `_matrix`, and
-    for every cell the walk's move there, the first that fits of
+    by row over read_codes (rows,) x path_codes (cols,), and for every cell the walk's move there, the first that fits of
     1 diagonal (H == H[i-1][j-1] + sub, sub the match iff read == path < 4,
     no PAD case), 2 up (I), 3 left (D); 0 stop (H <= 0, or none fits).
     Returns (H[rows][cols], codes (rows + 1, cols + 1) uint8, row and column
@@ -538,9 +522,9 @@ def traceback(read: np.ndarray, path: np.ndarray,
     The device of the align run picks the route.  On CUDA the walk runs on
     the card (`full_walk`: the rectangle's read and path chars go up in one
     copy, the result comes back in one).  Elsewhere the native C++ walk
-    (io/native.local_traceback) runs; the full-matrix numpy row loop below
-    is its oracle, taken when `native.available()` is false or the walk
-    declines.  Both devices walk a large rectangle in row blocks, in
+    (io/native.local_traceback) runs; the plain walk (`full_walk` on CPU
+    tensors) is its oracle, taken when `native.available()` is false or
+    the walk declines.  Both devices walk a large rectangle in row blocks, in
     bounded memory (ops/seqalign_cuda.walk_plan, the native walk's
     budget)."""
     if not (0 <= end_i <= len(read) and 0 <= end_j <= len(path)):
@@ -561,24 +545,19 @@ def _walk_route(read: np.ndarray, path: np.ndarray, device) -> Placement:
     from ..io import native
 
     end_i, end_j = len(read), len(path)
-    if torch.device(device).type == "cuda":
-        profiling.count("align.traceback.cuda")
-        seq = torch.from_numpy(np.concatenate(
-            [read, path]).astype(np.int8, copy=False)).to(device)
-        score, qstart, pstart, matches, nm, ops = full_walk(seq[:end_i],
-                                                            seq[end_i:])
-        return Placement(score, qstart, end_i, pstart, end_j,
-                         _runs(ops), matches, nm)
-    if native.available():
+    cuda = torch.device(device).type == "cuda"
+    res = None
+    if not cuda and native.available():
         profiling.count("align.traceback.native")
         res = native.local_traceback(read, path, end_i, end_j,
                                      MATCH, MISMATCH, GAP, PAD, _BLOCK)
-        if res is not None:
-            score, qstart, pstart, matches, nm, ops = res
-            return Placement(score, qstart, end_i, pstart, end_j,
-                             _runs(ops), matches, nm)
-    profiling.count("align.traceback.python")
-    return _traceback_py(read, path, end_i, end_j)
+    if res is None:
+        # the card's walk, or the plain walk on CPU tensors
+        profiling.count("align.traceback." + ("cuda" if cuda else "python"))
+        seq = torch.from_numpy(np.concatenate(
+            [read, path]).astype(np.int8, copy=False)).to(device)
+        res = full_walk(seq[:end_i], seq[end_i:])
+    return _placement(res, end_i, end_j)
 
 
 def band_end(lr: int, lp: int, end_i: int, end_j: int, delta: int,
@@ -713,10 +692,10 @@ def banded_traceback(read: np.ndarray, path: np.ndarray,
     else:
         profiling.count("align.traceback.python")
         res = banded_walk_ref(read, path, end_i, end_j, delta, width, expected)
-    return _banded_placement(res, end_i, end_j)
+    return _placement(res, end_i, end_j)
 
 
-def _banded_placement(res, end_i: int, end_j: int):
+def _placement(res, end_i: int, end_j: int):
     if res is None:
         return None
     score, qstart, pstart, matches, nm, ops = res
@@ -735,39 +714,5 @@ def banded_tracebacks(walks, device="cpu") -> list:
     from . import seqalign_cuda
 
     profiling.count("align.traceback.banded_cuda", len(walks))
-    return [_banded_placement(res, walk[2], walk[3]) for res, walk in
+    return [_placement(res, walk[2], walk[3]) for res, walk in
             zip(seqalign_cuda.banded_walks_cuda(walks, device), walks)]
-
-
-def _traceback_py(read: np.ndarray, path: np.ndarray,
-                  end_i: int, end_j: int) -> Placement:
-    # cells beyond (end_i, end_j) are never consulted by the walk
-    H = _matrix(read[:end_i], path[:end_j])
-    i, j = end_i, end_j
-    score = int(H[i, j])
-    ops: List[str] = []
-    matches = 0
-    nm = 0
-    while i > 0 and j > 0 and H[i, j] > 0:
-        sub = MATCH if (read[i - 1] == path[j - 1] and read[i - 1] < 4) else MISMATCH
-        if H[i, j] == H[i - 1, j - 1] + sub:
-            if sub == MATCH:
-                ops.append("=")
-                matches += 1
-            else:
-                ops.append("X")
-                nm += 1
-            i -= 1
-            j -= 1
-        elif H[i, j] == H[i - 1, j] + GAP:
-            ops.append("I")
-            nm += 1
-            i -= 1
-        elif H[i, j] == H[i, j - 1] + GAP:
-            ops.append("D")
-            nm += 1
-            j -= 1
-        else:  # local start (c floored at 0 mid-row)
-            break
-    ops.reverse()
-    return Placement(score, i, end_i, j, end_j, _runs(ops), matches, nm)

@@ -26,6 +26,7 @@ from gfalign_torch.io.gfa import read_gfa
 from gfalign_torch.ops import seqalign
 from tests.test_align_banded import _mini_arena_fixture
 from tests.test_torch_goldens import band_edge_reads
+from tests.test_torch_seqalign import ALIGN_WALKS
 
 SEEDED = dict(n_segments=120, n_reads=10, seg_len=(120, 400),
               read_len=(300, 900), sub_rate=0.01, ins_rate=0.002,
@@ -308,3 +309,60 @@ def test_align_reads_without_candidates_or_reads(tmp_path):
     junk = [("junk", "ACGT" * 5), ("n", "N" * 40)]
     assert graph_align.align_reads(graph, junk, device="cpu") == \
         [("junk", 20, []), ("n", 40, [])]
+
+
+# The names benchmark/modes/align.py and align_ul.py replace by assigning the
+# module or class attribute, to sample and count the engine's work: the
+# program must call each through that attribute at call time.
+SEAMS = ["graph_align._align_seeded", "DevicePools.__init__",
+         "DevicePools.path_idx", "DevicePools.update_reads",
+         "seqalign.banded_arena_scores", "seqalign.traceback"]
+_SEAM_GAF = {}
+
+
+def seam_inputs(case, d):
+    """"tails": SEEDED's reads, each with 80 random bases after it, so that
+    a placed read keeps an uncovered stretch and a later round sends its
+    masked row back to the pools; "walks": the CLR workload of
+    tests/test_torch_seqalign.py's recorded walks, whose declined banded
+    walks run full walks."""
+    if case == "walks":
+        kw, extra, _ = ALIGN_WALKS["clr-narrow"]
+        paths = synth.write_workload(synth.make_workload(**kw), str(d))
+        return paths["gfa"], paths["reads"], extra
+    wl = synth.make_workload(seed=41, **SEEDED)
+    gfa, _ = write_inputs(wl, d)
+    rng = np.random.default_rng(5)
+    reads = d / "tails.fa"
+    reads.write_text("".join(
+        f">{name}\n{seq}{''.join(rng.choice(list('ACGT'), 80))}\n"
+        for name, seq in wl.reads))
+    return gfa, str(reads), []
+
+
+@pytest.mark.parametrize("seam", SEAMS)
+def test_benchmark_seams_are_called_through_their_attributes(seam, tmp_path,
+                                                             monkeypatch):
+    """A counting wrapper assigned to each seam is called by a seeded align
+    on the device ladder, and the GAF is the run's without it."""
+    owner_name, name = seam.split(".")
+    owner = {"graph_align": graph_align, "seqalign": seqalign,
+             "DevicePools": graph_align.DevicePools}[owner_name]
+    case = "walks" if seam == "seqalign.traceback" else "tails"
+    gfa, reads, extra = seam_inputs(case, tmp_path)
+    out = tmp_path / "out.gaf"
+    argv = ["align", "-f", gfa, "-r", reads, "-o", str(out), *extra]
+    if case not in _SEAM_GAF:
+        assert run(torch_main, argv, device="cpu")[0] == 0
+        _SEAM_GAF[case] = out.read_bytes()
+    calls = []
+    real = getattr(owner, name)
+
+    def counting(*a, **kw):
+        calls.append(name)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(owner, name, counting)
+    assert run(torch_main, argv, device="cpu")[0] == 0
+    assert calls and out.read_bytes() == _SEAM_GAF[case]
+    assert _SEAM_GAF[case].count(b"\n") >= 10

@@ -201,10 +201,9 @@ def test_local_traceback_matches_oracle_and_jax(seed):
         ej = int(rng.integers(0, len(path) + 1))
         got = native.local_traceback(read, path, ei, ej, *SA)
         assert got == jax_native.local_traceback(read, path, ei, ej, *SA)
-        want = seqalign._traceback_py(read, path, ei, ej)
-        assert (got[0], got[1], got[2], got[3], got[4]) == (
-            want.score, want.qstart, want.pstart, want.matches, want.nm)
-        assert seqalign._runs(got[5]) == want.cigar
+        want = seqalign.full_walk(torch.from_numpy(read[:ei].copy()),
+                                  torch.from_numpy(path[:ej].copy()))
+        assert got == want
 
 
 @pytest.mark.parametrize("width", [16, 64])

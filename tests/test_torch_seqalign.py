@@ -280,11 +280,7 @@ def test_tracebacks_match_the_jax_package(seed):
     assert checked >= 10
 
 
-def test_runs_and_matrix_match_the_jax_package():
-    rng = np.random.default_rng(5)
-    read, path = mutated_pair(rng, 60)
-    np.testing.assert_array_equal(seqalign._matrix(read, path),
-                                  jax_seqalign._matrix(read, path))
+def test_runs_match_the_jax_package():
     for ops in ("", "==X=IID", list("DD==")):
         assert seqalign._runs(ops) == jax_seqalign._runs(ops)
 
@@ -292,10 +288,9 @@ def test_runs_and_matrix_match_the_jax_package():
 @pytest.mark.parametrize("case", WALK_CASES)
 def test_full_walk_plain_matches_native_and_oracles(case):
     """The plain walk codes and their walk (the walk kernel's plain
-    version) against the native walk, the numpy oracle and the JAX
-    package's, on random pairs, PAD-masked and N codes, repeats that tie,
-    a local start mid-row, and end cells on row 0, column 0 and the
-    corner."""
+    version) against the native walk and the JAX package's numpy walk, on
+    random pairs, PAD-masked and N codes, repeats that tie, a local start
+    mid-row, and end cells on row 0, column 0 and the corner."""
     read, path, ei, ej = walk_case(case)
     plain = seqalign.full_walk(torch.from_numpy(read[:ei].copy()),
                                torch.from_numpy(path[:ej].copy()))
@@ -305,7 +300,6 @@ def test_full_walk_plain_matches_native_and_oracles(case):
     score, qstart, pstart, matches, nm, ops = plain
     want = seqalign.Placement(score, qstart, ei, pstart, ej,
                               seqalign._runs(ops), matches, nm)
-    assert seqalign._traceback_py(read, path, ei, ej) == want
     assert jax_seqalign._traceback_py(read, path, ei, ej) == want
     assert seqalign.traceback(read, path, ei, ej) == want
     _, codes = seqalign.walk_codes_ref(torch.from_numpy(read[:ei].copy()),
@@ -341,7 +335,7 @@ def test_cut_and_blocked_walks_match_plain(case):
     s, qstart, pstart, matches, nm, ops = plain
     want = seqalign.Placement(s, qstart, ei, pstart, ej, seqalign._runs(ops),
                               matches, nm)
-    assert s == score and seqalign._traceback_py(read, path, ei, ej) == want
+    assert s == score and jax_seqalign._traceback_py(read, path, ei, ej) == want
     c0 = seqalign.walk_window(read, path, ei, ej, score)
     assert (c0 == 0) == (case == "pad-masked")
     assert pstart >= c0

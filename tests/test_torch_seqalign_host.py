@@ -580,7 +580,7 @@ def test_align_through_the_host_bandtrace_matches_the_native_walks(
     plain_gaf, plain = run()
 
     def waves(walks, device="cpu"):
-        return [seqalign._banded_placement(res, w[2], w[3])
+        return [seqalign._placement(res, w[2], w[3])
                 for res, w in zip(host_band_walks(host_lib, walks), walks)]
 
     monkeypatch.setattr(seqalign, "banded_tracebacks", waves)
